@@ -7,16 +7,31 @@ exits non-zero:
 
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions; no CUDA device is an error;
-  2. build: the pose kernel from snakeslam_tpu_torch/csrc with nvcc;
+  2. build: the three kernels from snakeslam_tpu_torch/csrc, one nvcc per
+     source, all started together;
   3. kernel: the CUDA pose kernel against its plain PyTorch version on the
      card at N = 512 and 1024, stereo and mono, bit-identical on a rerun,
      and timed (median of per-call CUDA-event times after a warm-up);
-  4. slice: the smooth stereo lane at full width (6000-point world, seed 7,
+  4. render: the pixels lane's 160 stereo pairs, once, on the host;
+  5. fast kernel: FAST-16 against its plain version on 64 rendered 480x752
+     views, the same views at pyramid levels 1-3 and an odd 3x101x157
+     batch: bit-identical, reruns bit-identical, timed;
+  6. patch gather: against slicing at tests/test_orb.py's shapes and at
+     64 x 480 x 752 with 1000 blocks of 56x256 per image: exact, timed;
+  7. slice: the smooth stereo lane at full width (6000-point world, seed 7,
      400 frames, 1024 feature slots, 2048 pinned local-map slots, window
      128, two-stage) through WindowedRunner on the card, with launch counts
      reset just before the run and read just after;
-  5. CPU against GPU: the first 64 frames, window 16, dense keyframes,
-     through the port on both devices.
+  8. pixels lane: the JAX bench's e2e_pixels lane (2600-point rendered
+     world, seed 13, 160 frames of 752x480 uint8 stereo pairs, 1000
+     features on 4 levels, chunk 32, window 32) through PixelFrameSequence
+     and WindowedRunner, warmed up once and then timed, with launch counts
+     reset just before the timed run and read just after; gated against
+     the JAX package's CPU run of the same lane (PERF.md);
+  9. CPU against GPU: the smooth lane's first 64 frames, window 16, dense
+     keyframes, through the port on both devices;
+ 10. pixels CPU against GPU: one chunk of 8 stereo pairs of the pixels lane
+     through stereo_frontend_batch on both devices.
 
 The line before the last is one JSON object with the kernels' names,
 routes, launch counts, errors and times; the last line is the result.
@@ -34,19 +49,29 @@ import time
 import numpy as np
 import torch
 
+from snakeslam_tpu_torch.frontend.pixels import (PixelFrameSequence,
+                                                 stereo_frontend_batch)
 from snakeslam_tpu_torch.frontend.synthetic_source import (
     apply_world_to_settings,
     synthetic_frames,
 )
+from snakeslam_tpu_torch.ops import orb as ORB
+from snakeslam_tpu_torch.ops import orb_kernels as OK
 from snakeslam_tpu_torch.ops import pose_fused as PF
 from snakeslam_tpu_torch.system.settings import InputType, Settings
 from snakeslam_tpu_torch.system.slam import SlamSystem
 from snakeslam_tpu_torch.tracking.windowed import WindowedRunner
+from snakeslam_tpu_torch.utils import cuda_build
 from snakeslam_tpu_torch.utils.pose_problems import pose_problem
+from snakeslam_tpu_torch.utils.render_world import render_sequence
 from snakeslam_tpu_torch.utils.synthetic import SyntheticWorld, orbit_trajectory
 
 POSE_ATOL = 2e-4          # tests/test_pose_pallas.py tolerances
 TIMED_CALLS = 100
+PIXELS_FRAMES, PIXELS_CHUNK = 160, 32
+# the JAX package's run of the pixels lane on the CPU, in the port's
+# back-end configuration (PERF.md): the pixels lane is gated against it
+JAX_PIXELS = dict(tracked=160, keyframes=5, ate_m=0.061596934852420904)
 
 
 def phase(name: str, **fields):
@@ -117,6 +142,220 @@ def kernel_phase(dev) -> dict:
             if n == 1024 and stereo:
                 timing = dict(ms=us / 1e3, plain_ms=us_plain / 1e3)
     return dict(max_abs_err=worst, **timing)
+
+
+def pixels_settings(world) -> Settings:
+    """bench.py's _base_settings with the e2e_pixels lane's feature count."""
+    s = Settings()
+    s.input_type = InputType.Stereo
+    s.enable_imu = False
+    s.feature_slots = 1024
+    s.local_map_slots = 4096
+    s.lba_cam_slots = 32
+    s.lba_point_slots = 8192
+    s.lba_obs_slots = 8
+    s.th_depth = 25.0
+    apply_world_to_settings(world, s)
+    s.fd_features = 1000
+    return s
+
+
+def render_pixels_lane():
+    """The e2e_pixels lane's world, settings and uint8 stereo pairs,
+    rendered once before any timed region."""
+    world = SyntheticWorld(n_points=2600, seed=13)   # 752x480 default
+    s = pixels_settings(world)
+    t0 = time.perf_counter()
+    L, R, ts, gt = [], [], [], []
+    for t, T_cw, left, right in render_sequence(
+            world, orbit_trajectory(PIXELS_FRAMES, radius=7.0,
+                                    arc=1.2 * PIXELS_FRAMES / 400.0,
+                                    fps=200.0)):
+        L.append(left.astype(np.uint8))
+        R.append(right.astype(np.uint8))
+        ts.append(t)
+        gt.append(T_cw)
+    lane = dict(settings=s, L=np.stack(L), R=np.stack(R), ts=ts, gt=gt)
+    phase("render", frames=PIXELS_FRAMES, image="752x480 uint8 stereo pairs",
+          seconds=time.perf_counter() - t0)
+    return lane
+
+
+def fast_phase(dev, lane) -> dict:
+    """FAST kernel vs plain version: 64 views of the lane (the first chunk,
+    left and right stacked, as extract_orb_batch stacks them), the same
+    views at levels 1-3, and an odd shape.  Returns the level-0 times."""
+    s = lane["settings"]
+    views = torch.from_numpy(np.concatenate(
+        [lane["L"][:PIXELS_CHUNK], lane["R"][:PIXELS_CHUNK]])).to(dev).float()
+    B, H, W = views.shape
+    cases = [("level0", views)]
+    for lvl in range(1, s.fd_levels):
+        scale = s.fd_scale_factor ** lvl
+        cases.append((f"level{lvl}", ORB._resize_matmul(
+            views, int(round(H / scale)), int(round(W / scale)))))
+    cases.append(("odd", views[:3, :101, :157].contiguous()))
+    th = float(s.fd_ini_th_fast)
+    out = {}
+    for name, imgs in cases:
+        sc, co = OK.fast_score_batch(imgs, th)
+        sc2, co2 = OK.fast_score_batch(imgs, th)
+        sr, cr = OK.fast_score_batch_reference(imgs, th)
+        torch.cuda.synchronize()
+        check(torch.equal(sc, sc2) and torch.equal(co, co2),
+              f"FAST kernel rerun not bit-identical ({name})")
+        check(torch.equal(co, cr), f"FAST corners differ ({name})")
+        check(torch.equal(sc, sr), f"FAST scores differ ({name})")
+        check(int(co.sum()) > 0, f"FAST found no corner ({name})")
+        err = (sc - sr).abs().max().item()
+        us = time_calls_us(lambda: OK.fast_score_batch(imgs, th))
+        us_plain = time_calls_us(
+            lambda: OK.fast_score_batch_reference(imgs, th))
+        phase("fast_kernel", case=name, shape=list(imgs.shape),
+              corners=int(co.sum()), max_abs_err=err, kernel_us=us,
+              plain_us=us_plain)
+        if name == "level0":
+            out = dict(max_abs_err=err, ms=us / 1e3, plain_ms=us_plain / 1e3)
+    return out
+
+
+def patch_phase(dev) -> dict:
+    """Patch gather vs slicing: tests/test_orb.py's inputs, then 1000
+    blocks of 56x256 per image of a 64 x 480 x 752 batch (3.7 GB out)."""
+    out = {}
+    rng = np.random.default_rng(0)
+    cases = []
+    img = rng.uniform(0, 255, (2, 104, 384)).astype(np.float32)
+    yt = rng.integers(0, (104 - 48) // 8, (2, 13)).astype(np.int32)
+    xt = rng.integers(0, (384 - 128) // 128 + 1, (2, 13)).astype(np.int32)
+    cases.append(("test_orb", img, yt, xt, 48, 128))
+    B, H, W, N = 64, 480, 752, 1000
+    img = rng.uniform(0, 255, (B, H, W)).astype(np.float32)
+    yt = rng.integers(0, (H - 56) // 8 + 1, (B, N)).astype(np.int32)
+    xt = rng.integers(0, (W - 256) // 128 + 1, (B, N)).astype(np.int32)
+    cases.append(("lane", img, yt, xt, 56, 256))
+    for name, img, yt, xt, sy, sx in cases:
+        args = [torch.from_numpy(a).to(dev) for a in (img, yt, xt)]
+        got = OK.patch_gather(*args, sy, sx)
+        want = OK.patch_gather_reference(*args, sy, sx)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"patch gather differs ({name})")
+        del got, want
+        # the kernel's launch against the plain version, neither with the
+        # wrapper's bounds check (a reduction and a host sync), which is
+        # timed on its own line
+        n = 20 if name == "lane" else TIMED_CALLS
+        us = time_calls_us(lambda: OK._launch_patch(*args, sy, sx), n=n,
+                           warmup=3)
+        us_plain = time_calls_us(
+            lambda: OK.patch_gather_reference(*args, sy, sx), n=n, warmup=3)
+        us_wrapper = time_calls_us(lambda: OK.patch_gather(*args, sy, sx),
+                                   n=n, warmup=3)
+        phase("patch_gather", case=name, shape=list(img.shape),
+              blocks=yt.shape[1], block=[sy, sx], max_abs_err=0.0,
+              kernel_us=us, plain_us=us_plain, wrapper_us=us_wrapper)
+        out = dict(max_abs_err=0.0, ms=us / 1e3, plain_ms=us_plain / 1e3)
+        del args
+    torch.cuda.empty_cache()
+    return out
+
+
+def pixels_run(lane, dev):
+    s = lane["settings"]
+    system = SlamSystem(s, dev)
+    seq = PixelFrameSequence(s, lane["L"], lane["R"], lane["ts"], lane["gt"],
+                             chunk=PIXELS_CHUNK, device=dev)
+    return system, seq, WindowedRunner(system, window=PIXELS_CHUNK)
+
+
+def pixels_phase(dev, lane) -> dict:
+    system, seq, runner = pixels_run(lane, dev)
+    runner.run(seq)                       # warm-up
+    torch.cuda.synchronize()
+
+    system, seq, runner = pixels_run(lane, dev)
+    OK.FAST_LAUNCHES = 0
+    PF.LAUNCHES = 0
+    t0 = time.perf_counter()
+    runner.run(seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fast, pose = OK.FAST_LAUNCHES, PF.LAUNCHES
+    tracked = len(system.tracker.trajectory)
+    ate, _, _ = system.ate_against_gt(with_scale=False)
+    levels = lane["settings"].fd_levels
+    chunks = -(-PIXELS_FRAMES // PIXELS_CHUNK)
+    phase("pixels_lane", frames=PIXELS_FRAMES, tracked=tracked,
+          keyframes=system.map.n_keyframes, points=system.map.n_points,
+          ate_m=ate, wall_s=wall, fps=tracked / wall,
+          image="752x480 uint8 stereo pairs, 1000 features",
+          fast_launches=fast, pose_launches=pose,
+          device_calls=runner.n_device_calls, jax_cpu=JAX_PIXELS)
+    check(fast == levels * chunks,
+          f"{fast} FAST launches for {chunks} chunks of {levels} levels")
+    check(pose == 2 * runner.window * runner.n_device_calls,
+          f"{pose} pose launches for {runner.n_device_calls} windows")
+    check(tracked == JAX_PIXELS["tracked"],
+          f"pixels lane tracked {tracked}, the JAX run {JAX_PIXELS['tracked']}")
+    check(abs(system.map.n_keyframes - JAX_PIXELS["keyframes"]) <= 1,
+          f"pixels lane {system.map.n_keyframes} keyframes, the JAX run "
+          f"{JAX_PIXELS['keyframes']}")
+    check(abs(ate - JAX_PIXELS["ate_m"]) <= 0.2 * JAX_PIXELS["ate_m"],
+          f"pixels lane ATE {ate} m, the JAX run {JAX_PIXELS['ate_m']} m")
+    return dict(fast=fast, pose=pose)
+
+
+def _features(outs, b):
+    """{(octave, u, v): (descriptor bytes, depth)} of frame b's valid
+    features."""
+    uv, octave, _, packed, valid, _, depth = (a[b].cpu().numpy()
+                                              for a in outs)
+    return {(int(o), float(u), float(v)): (d.tobytes(), float(z))
+            for o, (u, v), d, z in zip(octave[valid], uv[valid],
+                                       packed[valid], depth[valid])}
+
+
+def pixels_cpu_gpu_phase(dev, lane):
+    """One chunk of 8 stereo pairs through stereo_frontend_batch on both
+    devices: level 0 identical; over all levels >= 99% of features common,
+    >= 99% of those with equal descriptors; stereo flags >= 99% equal.
+    (Levels 1-3 come from f32 matrix products that cuBLAS and the CPU round
+    differently in the last ulps.)"""
+    s = lane["settings"]
+    kw = dict(bf=float(s.bf), n_features=int(s.fd_features),
+              levels=int(s.fd_levels), scale_factor=float(s.fd_scale_factor),
+              threshold=float(s.fd_ini_th_fast),
+              relaxed=bool(s.fd_relaxed_stereo))
+    L = torch.from_numpy(lane["L"][:8])
+    R = torch.from_numpy(lane["R"][:8])
+    cpu = stereo_frontend_batch(L, R, **kw)
+    gpu = stereo_frontend_batch(L.to(dev), R.to(dev), **kw)
+    torch.cuda.synchronize()
+    n_all = n_common = n_desc = n_flags = 0
+    l0 = dict(keys=0, desc=0, depth=0, n=0)
+    for b in range(8):
+        fc, fg = _features(cpu, b), _features(gpu, b)
+        common = [k for k in fc if k in fg]
+        n_all += max(len(fc), len(fg))
+        n_common += len(common)
+        n_desc += sum(fc[k][0] == fg[k][0] for k in common)
+        n_flags += sum((fc[k][1] > 0) == (fg[k][1] > 0) for k in common)
+        c0 = {k for k in fc if k[0] == 0}
+        g0 = {k for k in fg if k[0] == 0}
+        l0["n"] += len(c0)
+        l0["keys"] += len(c0 ^ g0)
+        l0["desc"] += sum(fc[k][0] != fg[k][0] for k in c0 & g0)
+        l0["depth"] += sum(fc[k][1] != fg[k][1] for k in c0 & g0)
+    phase("pixels_cpu_vs_gpu", frames=8, features=n_all, common=n_common,
+          equal_desc=n_desc, equal_stereo_flag=n_flags,
+          level0_features=l0["n"], level0_key_mismatch=l0["keys"],
+          level0_desc_mismatch=l0["desc"], level0_depth_mismatch=l0["depth"])
+    check(l0["n"] > 0 and l0["keys"] == 0 and l0["desc"] == 0,
+          "level-0 features differ between CPU and GPU")
+    check(l0["depth"] == 0, "level-0 stereo depths differ between CPU and GPU")
+    check(n_common >= 0.99 * n_all, f"{n_common} of {n_all} features common")
+    check(n_desc >= 0.99 * n_common, f"{n_desc} of {n_common} descriptors")
+    check(n_flags >= 0.99 * n_common, f"{n_flags} of {n_common} stereo flags")
 
 
 def smooth_settings(world) -> Settings:
@@ -209,20 +448,43 @@ def main() -> int:
     phase("environment", torch=torch.__version__, cuda=torch.version.cuda,
           device=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count())
-    phase("build", seconds=PF.build(force=True))
+    phase("build", seconds=cuda_build.build(
+        PF.SOURCE, OK.FAST_SOURCE, OK.PATCH_SOURCE, force=True))
     kern = kernel_phase(dev)
-    launches = slice_phase(dev)
+    lane = render_pixels_lane()
+    fast = fast_phase(dev, lane)
+    patch = patch_phase(dev)
+    smooth_launches = slice_phase(dev)
+    pix = pixels_phase(dev, lane)
     cpu_gpu_phase(dev)
+    pixels_cpu_gpu_phase(dev, lane)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "pose_refine_fused",
         "route": "cuda",
         "source": "snakeslam_tpu_torch/csrc/pose_refine.cu",
         "replaces": "snakeslam_tpu/ops/pose_pallas.py:258",
-        "launches": launches,
+        # the smooth lane's and the pixels lane's runs, each counted alone
+        "launches": smooth_launches + pix["pose"],
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
+    }, {
+        "name": "fast_score_batch",
+        "route": "cuda",
+        "source": "snakeslam_tpu_torch/csrc/fast_score.cu",
+        "replaces": "snakeslam_tpu/ops/orb_pallas.py:96",
+        "launches": pix["fast"],
+        **fast,
+    }, {
+        "name": "patch_gather",
+        "route": "cuda",
+        "source": "snakeslam_tpu_torch/csrc/patch_gather.cu",
+        "replaces": "snakeslam_tpu/ops/orb_pallas.py:176",
+        # no path of either package calls it (only tests): held in its
+        # kernel phase alone
+        "launches": 0,
+        **patch,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,17 +4,20 @@ A port of the JAX package ``snakeslam_tpu`` that keeps its sub-package
 layout and module names, so each module's counterpart is found under the
 same path:
 
-  core/      SE3 Lie algebra, camera model, scale pyramid, trajectory eval
-  ops/       tensor ops: linear algebra, descriptors, matching, pose GN,
-             and the hand-written CUDA pose kernel (ops/pose_fused.py,
-             csrc/pose_refine.cu)
+  core/      SE3 Lie algebra, camera model and distortion, scale pyramid,
+             trajectory eval
+  ops/       tensor ops: linear algebra, descriptors, matching, pose GN, ORB,
+             and the hand-written CUDA kernels (ops/pose_fused.py,
+             ops/orb_kernels.py; sources in csrc/)
   models/    per-frame and windowed tracking steps
   map/       host map (numpy pools) and its device point table
   tracking/  tracker state machine, staging, windowed runner
   mapping/   keyframe insertion (synchronous half)
   system/    settings, stats, SlamSystem
-  utils/     synthetic worlds, conversion of JAX-package state
-  frontend/  synthetic feature source
+  utils/     synthetic and rendered worlds, conversion of JAX-package state,
+             the kernels' build helper, the native runtime library
+  frontend/  synthetic feature source, pixels-in stereo front-end, feature
+             detector and preprocessing
 
 State is created on an explicit ``device``; CPU tensors take each kernel's
 plain PyTorch version, CUDA tensors launch the kernel.

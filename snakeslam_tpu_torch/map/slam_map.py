@@ -713,9 +713,16 @@ class SlamMap:
         return errors
 
     def clear(self):
+        """Empty the map.  The generation counter stays monotonic across the
+        clear (unlike the JAX package, which restarts it at 0): every cache
+        keyed on ``state`` — the device mirror, the tracker's fine snapshot —
+        then goes stale by construction and cannot serve the old map's rows
+        when the new map's counter reaches a previously synced value."""
         listeners = self.on_transform
+        state = self.state
         self.__init__(self.max_keyframes, self.max_points, self.max_features)
         self.on_transform = listeners
+        self.state = state + 1
 
 
 def transform_pose_cw(T: np.ndarray, s: float, R: np.ndarray,

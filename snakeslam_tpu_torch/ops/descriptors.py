@@ -37,13 +37,14 @@ def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
 
 
 def hamming_matrix(bits_a: torch.Tensor, bits_b: torch.Tensor) -> torch.Tensor:
-    """Pairwise Hamming distances (N, 256) x (M, 256) -> (N, M) int32."""
+    """Pairwise Hamming distances (..., N, 256) x (..., M, 256) -> (..., N,
+    M) int32 (leading dims batch, as one batched matrix product)."""
     a = bits_a.to(torch.float32)
     b = bits_b.to(torch.float32)
-    dot = a @ b.T
+    dot = a @ b.mT
     wa = a.sum(dim=-1)
     wb = b.sum(dim=-1)
-    return (wa[:, None] + wb[None, :] - 2.0 * dot).to(torch.int32)
+    return (wa[..., :, None] + wb[..., None, :] - 2.0 * dot).to(torch.int32)
 
 
 def hamming_distance(bits_a: torch.Tensor, bits_b: torch.Tensor) -> torch.Tensor:

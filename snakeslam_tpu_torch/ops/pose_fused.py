@@ -5,7 +5,8 @@ a whole robust pose refine — ``outer_iters`` rounds of (``inner_iters``
 damped GN steps -> chi2 outlier reclassification) — in one launch.  The
 kernel is hand-written CUDA C++ for ``sm_90a`` (``csrc/pose_refine.cu``),
 compiled with ``nvcc`` at first use into ``snakeslam_tpu_torch/build/`` and
-bound with ``ctypes``; the source file documents its design.
+bound with ``ctypes`` (``utils/cuda_build.py``); the source file documents
+its design.
 
 ``pose_refine_fused`` takes the JAX signature.  CUDA tensors launch the
 kernel; CPU tensors take ``pose_refine_fused_reference``, the plain PyTorch
@@ -16,63 +17,25 @@ from __future__ import annotations
 
 import ctypes
 import math
-import os
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
 from snakeslam_tpu_torch.core import lie
 from snakeslam_tpu_torch.core.camera import Pinhole
 from snakeslam_tpu_torch.ops.linalg import solve6x6_psd
+from snakeslam_tpu_torch.utils import cuda_build
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "pose_refine.cu"
-BUILD_DIR = _PKG / "build"
-LIBRARY = BUILD_DIR / "libpose_refine.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
-
+SOURCE = "pose_refine.cu"
 LAUNCHES = 0      # kernel launches since the last reset (wrapper count)
-_lib = None
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    return str(cand) if cand.exists() else "nvcc"
-
-
-def build(force: bool = False) -> float:
-    """Compile ``csrc/pose_refine.cu`` into ``build/libpose_refine.so``;
-    returns the seconds the build took (0.0 when an up-to-date library was
-    already there and ``force`` is False)."""
-    if (not force and LIBRARY.exists()
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
-        return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_suffix(f".{os.getpid()}.tmp.so")
-    t0 = time.perf_counter()
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                   check=True)
-    os.replace(tmp, LIBRARY)
-    return time.perf_counter() - t0
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(LIBRARY))
-        fn = lib.snk_pose_refine_fused
-        fn.argtypes = ([ctypes.c_void_p] * 11
-                       + [ctypes.c_float] * 3
-                       + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 4)
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _bind(lib):
+    fn = lib.snk_pose_refine_fused
+    fn.argtypes = ([ctypes.c_void_p] * 11
+                   + [ctypes.c_float] * 3
+                   + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 4)
+    fn.restype = ctypes.c_int
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +184,7 @@ def _launch(T_init, points, uv, right, weight, mask, cam, bf, chi2_mono,
     T_out = torch.empty((B, 4, 4), dtype=f32, device=points.device)
     inl = torch.empty((B, N), dtype=torch.bool, device=points.device)
     n_inl = torch.empty((B,), dtype=torch.int32, device=points.device)
-    lib = _load()
+    lib = cuda_build.load(SOURCE, _bind)
     stream = torch.cuda.current_stream(points.device).cuda_stream
     err = lib.snk_pose_refine_fused(
         T_init.data_ptr(), points.data_ptr(), uv.data_ptr(),
@@ -231,8 +194,7 @@ def _launch(T_init, points, uv, right, weight, mask, cam, bf, chi2_mono,
         int(outer_iters), int(inner_iters), int(B), int(N),
         T_out.data_ptr(), inl.view(torch.uint8).data_ptr(),
         n_inl.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"pose_refine_fused: CUDA error {err} at launch")
+    cuda_build.check_launch(err, "pose_refine_fused")
     LAUNCHES += 1
     return T_out, inl, n_inl
 

@@ -70,8 +70,10 @@ class Settings:
     fd_threads: int = 2
     fd_buffer_to_file: bool = False
     fd_relaxed_stereo: bool = True
-    # FAST via the banded Pallas kernel (-1 = auto: on when the backend is
-    # a TPU; 0/1 force off/on) — see ops/orb_pallas.py
+    # read from config files for compatibility with the JAX package, where
+    # it picks the Pallas FAST kernel; in this package it selects nothing:
+    # the tensor's device does (CUDA launches the kernel, CPU takes its
+    # plain version — ops/orb_kernels.py)
     fd_use_pallas: int = -1
 
     # ====== Tracking (Settings.h:124-136) ======

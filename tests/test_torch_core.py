@@ -115,3 +115,34 @@ def test_unproject_and_pixels():
            atol=1e-4)
     _close(jc.unproject_pixels(jnp.asarray(uv)),
            tc.unproject_pixels(torch.from_numpy(uv)))
+    xn = rng.normal(size=(128, 2)).astype(np.float32) * 0.4
+    _close(np.asarray(jc.project_normalized(jnp.asarray(xn))) / 1e3,
+           tc.project_normalized(torch.from_numpy(xn)) / 1e3)
+
+
+EUROC_DIST = dict(k1=-0.28340811, k2=0.07395907, p1=0.00019359,
+                  p2=1.76187114e-05)
+
+
+def test_distort_and_undistort():
+    """f32 parity with the JAX functions, and the f64 round trip of
+    tests/test_camera.py (< 1e-8 after 10 Gauss-Newton steps)."""
+    rng = np.random.default_rng(8)
+    xn = rng.uniform(-0.6, 0.6, size=(512, 2))
+    jd = jcam.Distortion.create(**EUROC_DIST)
+    td = tcam.Distortion.create(**EUROC_DIST)
+    x32 = xn.astype(np.float32)
+    xd_j = jcam.distort(jnp.asarray(x32), jd)
+    xd_t = tcam.distort(torch.from_numpy(x32), td)
+    _close(xd_j, xd_t)
+    xd32 = np.array(xd_j, dtype=np.float32)
+    _close(jcam.undistort(jnp.asarray(xd32), jd),
+           tcam.undistort(torch.from_numpy(xd32), td))
+    d64 = tcam.Distortion.create(**EUROC_DIST, dtype=torch.float64)
+    back = tcam.undistort(tcam.distort(torch.from_numpy(xn), d64), d64,
+                          iters=10)
+    assert np.abs(back.numpy() - xn).max() < 1e-8
+    zero = tcam.Distortion.create()
+    assert zero.is_zero() and not td.is_zero()
+    assert torch.equal(tcam.distort(torch.from_numpy(x32), zero),
+                       torch.from_numpy(x32))

@@ -1,18 +1,22 @@
-"""The CUDA pose kernel on the card, against its plain PyTorch version.
+"""The CUDA kernels on the card, against their plain PyTorch versions.
 
 Marked ``cuda``: every test takes the ``cuda_device`` fixture, which skips
 when no NVIDIA GPU is present (a CUDA kernel has no CPU mode).  On a card:
 ``python -m pytest tests/test_torch_cuda.py -q``.  This file imports no JAX.
 
-Tolerances are those of tests/test_pose_pallas.py: pose atol 2e-4, inlier
-agreement > 0.99, inlier counts within max(3, 1%) — the kernel's
-fixed-order block reduction sums in another f32 order than torch.
+Pose kernel tolerances are those of tests/test_pose_pallas.py: pose atol
+2e-4, inlier agreement > 0.99, inlier counts within max(3, 1%) — the
+kernel's fixed-order block reduction sums in another f32 order than torch.
+The FAST kernel sums in its plain version's order and the patch gather only
+copies, so both are held bit-identical.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from snakeslam_tpu_torch.ops import orb as ORB
+from snakeslam_tpu_torch.ops import orb_kernels as OK
 from snakeslam_tpu_torch.ops import pose_fused as PF
 from snakeslam_tpu_torch.utils.pose_problems import pose_problem
 
@@ -120,3 +124,107 @@ def test_windowed_slice_goes_through_the_kernel(cuda_device):
     ate_g = gpu.ate_against_gt(with_scale=False)[0]
     ate_c = cpu.ate_against_gt(with_scale=False)[0]
     assert abs(ate_g - ate_c) <= 0.1 * ate_c, (ate_g, ate_c)
+
+
+def _rendered_views(n_frames, seed=3):
+    """Rendered 320x240 uint8 stereo pairs (the pixels slice's world)."""
+    from snakeslam_tpu_torch.utils.render_world import render_sequence
+    from snakeslam_tpu_torch.utils.synthetic import (SyntheticWorld,
+                                                     orbit_trajectory)
+
+    world = SyntheticWorld(n_points=900, seed=seed, image_size=(320, 240),
+                           fx=260.0, fy=260.0, cx=160.0, cy=120.0,
+                           baseline=0.12, extent=8.0)
+    views = list(render_sequence(
+        world, orbit_trajectory(n_frames, radius=6.5, arc=0.5, fps=20.0)))
+    L = np.stack([v[2].astype(np.uint8) for v in views])
+    R = np.stack([v[3].astype(np.uint8) for v in views])
+    return L, R, [v[0] for v in views], [v[1] for v in views]
+
+
+@pytest.mark.parametrize("kind", ["integer", "resized", "odd"])
+def test_fast_kernel_bit_identical(cuda_device, kind):
+    L, R, _, _ = _rendered_views(4)
+    imgs = torch.from_numpy(np.concatenate([L, R])).to(cuda_device).float()
+    if kind == "resized":
+        imgs = ORB._resize_matmul(imgs, 167, 222)
+    elif kind == "odd":
+        imgs = imgs[:3, :101, :157].contiguous()
+    launches = OK.FAST_LAUNCHES
+    s, c = OK.fast_score_batch(imgs, 20.0)
+    s2, c2 = OK.fast_score_batch(imgs, 20.0)
+    torch.cuda.synchronize()
+    assert OK.FAST_LAUNCHES == launches + 2
+    sr, cr = OK.fast_score_batch_reference(imgs, 20.0)
+    assert torch.equal(c, cr) and torch.equal(s, sr)
+    assert torch.equal(c, c2) and torch.equal(s, s2)
+    assert int(c.sum()) > 100
+
+
+@pytest.mark.parametrize("W", [384, 390])
+def test_patch_gather_kernel_exact(cuda_device, W):
+    """W = 384 takes the float4 path, W = 390 the scalar one."""
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.uniform(0, 255, (2, 104, W)).astype(
+        np.float32)).to(cuda_device)
+    yt = torch.from_numpy(rng.integers(0, (104 - 48) // 8, (2, 13)).astype(
+        np.int32)).to(cuda_device)
+    xt = torch.from_numpy(rng.integers(0, (W - 128) // 128 + 1, (2, 13))
+                          .astype(np.int32)).to(cuda_device)
+    launches = OK.PATCH_LAUNCHES
+    out = OK.patch_gather(img, yt, xt, 48, 128)
+    torch.cuda.synchronize()
+    assert OK.PATCH_LAUNCHES == launches + 1
+    assert torch.equal(out, OK.patch_gather_reference(img, yt, xt, 48, 128))
+
+
+def test_patch_gather_raises_not_falls_back(cuda_device):
+    img = torch.zeros((1, 104, 384), device=cuda_device)
+    yt = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)
+    xt = torch.tensor([[0, 3]], dtype=torch.int32, device=cuda_device)
+    launches = OK.PATCH_LAUNCHES
+    with pytest.raises(ValueError, match="leaves"):
+        OK.patch_gather(img, yt, xt, 48, 128)
+    with pytest.raises(ValueError, match="mixed devices"):
+        OK.patch_gather(img, yt.cpu(), xt, 48, 128)
+    assert OK.PATCH_LAUNCHES == launches
+
+
+def test_pixels_run_goes_through_the_fast_kernel(cuda_device):
+    """48 rendered frames, chunk 16, window 16 on the card: one FAST launch
+    per pyramid level per chunk, and the run tracks like the CPU run."""
+    from snakeslam_tpu_torch.frontend.pixels import PixelFrameSequence
+    from snakeslam_tpu_torch.system.settings import InputType, Settings
+    from snakeslam_tpu_torch.system.slam import SlamSystem
+    from snakeslam_tpu_torch.tracking.windowed import WindowedRunner
+
+    L, R, ts, gt = _rendered_views(48)
+
+    def run(device):
+        s = Settings()
+        s.input_type = InputType.Stereo
+        s.enable_imu = False
+        s.width, s.height = 320, 240
+        s.fx, s.fy, s.cx, s.cy = 260.0, 260.0, 160.0, 120.0
+        s.bf = 260.0 * 0.12
+        s.fd_features = 600
+        s.fd_levels = 4
+        s.feature_slots = 1024
+        s.local_map_slots = 2048
+        s.th_depth = 20.0
+        system = SlamSystem(s, device)
+        seq = PixelFrameSequence(s, L, R, ts, gt, chunk=16, device=device)
+        fast = OK.FAST_LAUNCHES
+        WindowedRunner(system, window=16).run(seq)
+        return system, OK.FAST_LAUNCHES - fast
+
+    gpu, launches = run(cuda_device)
+    torch.cuda.synchronize()
+    assert launches == 4 * 3
+    cpu, cpu_launches = run("cpu")
+    assert cpu_launches == 0
+    assert len(gpu.tracker.trajectory) == len(cpu.tracker.trajectory) >= 43
+    assert abs(gpu.map.n_keyframes - cpu.map.n_keyframes) <= 1
+    ate_g = gpu.ate_against_gt(with_scale=False)[0]
+    ate_c = cpu.ate_against_gt(with_scale=False)[0]
+    assert abs(ate_g - ate_c) <= 0.2 * ate_c, (ate_g, ate_c)

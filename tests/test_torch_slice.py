@@ -160,6 +160,36 @@ frames = list(synthetic_frames(world, orbit_trajectory(10, radius=7.0,
                                                        arc=0.03), s))
 WindowedRunner(system, window=4).run(frames)
 assert len(system.tracker.trajectory) == 10, len(system.tracker.trajectory)
+
+# the pixels-in modules: render, extract, match, cache
+import numpy as np
+from snakeslam_tpu_torch.frontend.feature_detector import FeatureDetector
+from snakeslam_tpu_torch.frontend.pixels import PixelFrameSequence
+from snakeslam_tpu_torch.frontend.preprocess import Preprocess
+from snakeslam_tpu_torch.utils import native
+from snakeslam_tpu_torch.utils.render_world import render_sequence
+
+pw = SyntheticWorld(n_points=300, seed=5, image_size=(160, 120), fx=130.0,
+                    fy=130.0, cx=80.0, cy=60.0, baseline=0.12, extent=8.0)
+ps = Settings()
+ps.input_type = InputType.Stereo
+ps.enable_imu = False
+ps.width, ps.height = 160, 120
+ps.fx, ps.fy, ps.cx, ps.cy = 130.0, 130.0, 80.0, 60.0
+ps.bf = 130.0 * 0.12
+ps.fd_features = 200
+ps.fd_levels = 2
+views = list(render_sequence(pw, orbit_trajectory(4, radius=6.5, arc=0.05)))
+L = np.stack([l.astype(np.uint8) for _, _, l, _ in views])
+R = np.stack([r.astype(np.uint8) for _, _, _, r in views])
+seq = PixelFrameSequence(ps, L, R, [v[0] for v in views], chunk=2,
+                         device="cpu")
+assert len(seq[0:4]) == 4 and min(f.n for f in seq[0:4]) > 50
+det = FeatureDetector(ps, device="cpu")
+f = det.detect(L[0], 0, 0.0)
+assert Preprocess(ps, device="cpu").stereo_match(
+    f, det.detect(R[0], 1, 0.0)) > 0
+native.available()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "snakeslam_tpu.")))
 print("LEAKED", bad)
