@@ -20,18 +20,30 @@ exits non-zero:
      64 x 480 x 752 with 1000 blocks of 56x256 per image: exact, timed;
   7. slice: the smooth stereo lane at full width (6000-point world, seed 7,
      400 frames, 1024 feature slots, 2048 pinned local-map slots, window
-     128, two-stage) through WindowedRunner on the card, with launch counts
-     reset just before the run and read just after;
+     128, two-stage) with the full keyframe back-end (triangulation,
+     neighbour fusion, local BA on 32 / 8192 / 8 slots, simplification, the
+     deferred mapper) through WindowedRunner on the card, with launch
+     counts reset just before the run and read just after; gated against
+     the JAX package's CPU run of the same lane (PERF.md); then the
+     keyframe cycle's pipelined and blocking ms on the lane's last
+     keyframe;
   8. pixels lane: the JAX bench's e2e_pixels lane (2600-point rendered
      world, seed 13, 160 frames of 752x480 uint8 stereo pairs, 1000
      features on 4 levels, chunk 32, window 32) through PixelFrameSequence
      and WindowedRunner, warmed up once and then timed, with launch counts
      reset just before the timed run and read just after; gated against
      the JAX package's CPU run of the same lane (PERF.md);
+     (the pixels lane keeps the reduced back-end it was gated with);
   9. CPU against GPU: the smooth lane's first 64 frames, window 16, dense
-     keyframes, through the port on both devices;
+     keyframes, full back-end, through the port on both devices;
  10. pixels CPU against GPU: one chunk of 8 stereo pairs of the pixels lane
-     through stereo_frontend_batch on both devices.
+     through stereo_frontend_batch on both devices;
+ 11. local BA: solve_ba on one LBA-shaped problem (C = 32, P = 2048, M = 8)
+     on the card without a host sync, bit-identical on a rerun, against
+     the CPU solve; timed;
+ 12. triangulation: triangulate_pairs_batch over 10 neighbour pairs at
+     1024 slots on the card without a host sync, integer outputs identical
+     to the CPU's; timed.
 
 The line before the last is one JSON object with the kernels' names,
 routes, launch counts, errors and times; the last line is the result.
@@ -55,13 +67,17 @@ from snakeslam_tpu_torch.frontend.synthetic_source import (
     apply_world_to_settings,
     synthetic_frames,
 )
+from snakeslam_tpu_torch.ops import ba as BA
 from snakeslam_tpu_torch.ops import orb as ORB
 from snakeslam_tpu_torch.ops import orb_kernels as OK
 from snakeslam_tpu_torch.ops import pose_fused as PF
 from snakeslam_tpu_torch.system.settings import InputType, Settings
+from snakeslam_tpu_torch.ops.triangulate_pairs import triangulate_pairs_batch
 from snakeslam_tpu_torch.system.slam import SlamSystem
+from snakeslam_tpu_torch.tracking.staging import HostCopy
 from snakeslam_tpu_torch.tracking.windowed import WindowedRunner
 from snakeslam_tpu_torch.utils import cuda_build
+from snakeslam_tpu_torch.utils.backend_problems import ba_problem, pair_problem
 from snakeslam_tpu_torch.utils.pose_problems import pose_problem
 from snakeslam_tpu_torch.utils.render_world import render_sequence
 from snakeslam_tpu_torch.utils.synthetic import SyntheticWorld, orbit_trajectory
@@ -72,6 +88,11 @@ PIXELS_FRAMES, PIXELS_CHUNK = 160, 32
 # the JAX package's run of the pixels lane on the CPU, in the port's
 # back-end configuration (PERF.md): the pixels lane is gated against it
 JAX_PIXELS = dict(tracked=160, keyframes=5, ate_m=0.061596934852420904)
+# the JAX package's run of the smooth lane on the CPU with its full
+# back-end minus loop closing, one window consumed per fetch (PERF.md)
+JAX_SMOOTH = dict(tracked=400, keyframes=5, ate_m=0.0035097656632509895,
+                  lba_runs=4, triangulated=0, fused=1205)
+BA_ATOL = 1e-4            # solve_ba on the card against the CPU
 
 
 def phase(name: str, **fields):
@@ -260,9 +281,21 @@ def patch_phase(dev) -> dict:
     return out
 
 
+def reduce_backend(system):
+    """The keyframe back-end cut to its synchronous half (no triangulation,
+    fusion, local BA or back-end queues): the configuration the pixels
+    lane's JAX reference ran in."""
+    lm = system.local_mapper
+    lm.lba = None
+    lm.map_searcher = None
+    lm.backends = []
+    lm._tri_dispatch = lambda *a, **k: None
+
+
 def pixels_run(lane, dev):
     s = lane["settings"]
     system = SlamSystem(s, dev)
+    reduce_backend(system)
     seq = PixelFrameSequence(s, lane["L"], lane["R"], lane["ts"], lane["gt"],
                              chunk=PIXELS_CHUNK, device=dev)
     return system, seq, WindowedRunner(system, window=PIXELS_CHUNK)
@@ -365,9 +398,19 @@ def smooth_settings(world) -> Settings:
     s.feature_slots = 1024
     s.local_map_slots = 2048
     s.pin_local_map_bucket = True
+    s.lba_cam_slots = 32          # bench._base_settings' LBA slots
+    s.lba_point_slots = 8192
+    s.lba_obs_slots = 8
     s.th_depth = 25.0
     apply_world_to_settings(world, s)
     return s
+
+
+def backend_counts(system) -> dict:
+    return dict(lba_runs=system.lba.n_runs,
+                triangulated=system.local_mapper.n_triangulated,
+                fused=system.local_mapper.map_searcher.n_fused,
+                culled=system.simplification.n_culled)
 
 
 def smooth_lane(seed: int, count: int, dev, dense: bool = False):
@@ -384,7 +427,7 @@ def smooth_lane(seed: int, count: int, dev, dense: bool = False):
     return system, frames
 
 
-def slice_phase(dev) -> int:
+def slice_phase(dev):
     # warm-up as the bench does: dense keyframes exercise every path once
     system, frames = smooth_lane(123, 48, dev, dense=True)
     WindowedRunner(system, window=128).run(frames)
@@ -400,17 +443,125 @@ def slice_phase(dev) -> int:
     launches = PF.LAUNCHES
     tracked = len(system.tracker.trajectory)
     ate, _, _ = system.ate_against_gt(with_scale=False)
+    counts = backend_counts(system)
     phase("slice", frames=len(frames), tracked=tracked,
           keyframes=system.map.n_keyframes, points=system.map.n_points,
           ate_m=ate, wall_s=wall, fps=tracked / wall, launches=launches,
-          device_calls=runner.n_device_calls)
-    check(tracked == 400, f"tracked {tracked} of 400 frames")
-    check(4 <= system.map.n_keyframes <= 6,
-          f"{system.map.n_keyframes} keyframes, expected 4 to 6")
-    check(ate <= 3.0e-3, f"ATE {ate} m above 3.0 mm")
+          device_calls=runner.n_device_calls, **counts, jax_cpu=JAX_SMOOTH)
+    check(tracked == JAX_SMOOTH["tracked"], f"tracked {tracked} of 400 frames")
+    check(abs(system.map.n_keyframes - JAX_SMOOTH["keyframes"]) <= 1,
+          f"{system.map.n_keyframes} keyframes, the JAX run "
+          f"{JAX_SMOOTH['keyframes']}")
+    check(abs(ate - JAX_SMOOTH["ate_m"]) <= 0.2 * JAX_SMOOTH["ate_m"],
+          f"ATE {ate} m, the JAX run {JAX_SMOOTH['ate_m']} m")
+    check(counts["lba_runs"] >= 1 and counts["fused"] >= 1,
+          f"the keyframe back-end did not run: {counts}")
+    for k in ("lba_runs", "triangulated", "fused"):
+        check(abs(counts[k] - JAX_SMOOTH[k]) <= 0.1 * JAX_SMOOTH[k],
+              f"{k} {counts[k]}, the JAX run {JAX_SMOOTH[k]}")
     check(launches == 2 * runner.window * runner.n_device_calls,
           f"{launches} kernel launches for {runner.n_device_calls} windows")
-    return launches
+    return launches, system
+
+
+def kf_cycle_phase(system, reps: int = 3):
+    """The keyframe cycle (triangulation fan-out, bidirectional fusion,
+    local BA) on the lane's last keyframe, as bench._bench_kf_cycle
+    measures it: blocking = one dispatch -> readback, the median of
+    ``reps`` after one warm-up; pipelined = ms per cycle with cycle k + 1
+    dispatched before cycle k's readback (the runner's schedule)."""
+    lm = system.tracker.local_mapper
+    kf = int(system.tracker.last_kf)
+
+    def one_dispatch():
+        tri = lm._tri_dispatch(kf)
+        fuse = lm.map_searcher.dispatch(kf)
+        ba = lm.lba.dispatch(kf)
+        arrays = []
+        if tri is not None:
+            arrays += [tri[0]["valid"], tri[0]["match_b"], tri[0]["point"]]
+        if fuse is not None:
+            arrays += fuse[0]
+        if ba is not None:
+            arrays += ba[0]
+        check(tri is not None and fuse is not None and ba is not None,
+              "the keyframe cycle did not dispatch all three stages")
+        return HostCopy(arrays)
+
+    times = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        one_dispatch().wait()
+        times.append(time.perf_counter() - t0)
+    blocking_ms = statistics.median(times[1:]) * 1e3
+    n_pipe = 2 * reps + 2
+    prev = one_dispatch()
+    t0 = time.perf_counter()
+    for _ in range(n_pipe):
+        cur = one_dispatch()
+        prev.wait()
+        prev = cur
+    prev.wait()
+    pipelined_ms = (time.perf_counter() - t0) / (n_pipe + 1) * 1e3
+    phase("kf_cycle", keyframe=kf, blocking_ms=blocking_ms,
+          pipelined_ms=pipelined_ms)
+
+
+def ba_phase(dev):
+    """solve_ba on the card: no host sync, a bit-identical rerun, poses and
+    points within BA_ATOL of the CPU solve; timed against the CPU."""
+    prob, cam, bf = ba_problem(32, 2048, 8, 0, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = BA.solve_ba(prob, cam, bf, iterations=3)
+        again = BA.solve_ba(prob, cam, bf, iterations=3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+          "solve_ba rerun not bit-identical")
+    cprob, ccam, cbf = ba_problem(32, 2048, 8, 0, "cpu")
+    t0 = time.perf_counter()
+    ref = BA.solve_ba(cprob, ccam, cbf, iterations=3)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    err_pose = (out[0].cpu() - ref[0]).abs().max().item()
+    err_pts = (out[1].cpu() - ref[1]).abs().max().item()
+    ms = time_calls_us(lambda: BA.solve_ba(prob, cam, bf, iterations=3),
+                       n=20, warmup=3) / 1e3
+    phase("solve_ba", C=32, P=2048, M=8, iterations=3,
+          max_abs_err_pose=err_pose, max_abs_err_points=err_pts,
+          cost_gpu=float(out[2]), cost_cpu=float(ref[2]), gpu_ms=ms,
+          cpu_ms=cpu_ms, rerun_bit_identical=True)
+    check(err_pose <= BA_ATOL, f"solve_ba poses differ by {err_pose}")
+    check(err_pts <= BA_ATOL, f"solve_ba points differ by {err_pts}")
+
+
+def triangulation_phase(dev):
+    """triangulate_pairs_batch over 10 neighbour pairs at the lane's 1024
+    slots: no host sync, integer outputs identical to the CPU's."""
+    kw = pair_problem(1024, 10, 1, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = triangulate_pairs_batch(**kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ckw = pair_problem(1024, 10, 1, "cpu")
+    t0 = time.perf_counter()
+    ref = triangulate_pairs_batch(**ckw)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    same = {k: torch.equal(out[k].cpu(), ref[k])
+            for k in ("valid", "match_b", "far_away", "n_new")}
+    v = ref["valid"]
+    err = (out["point"].cpu()[v] - ref["point"][v]).norm(dim=-1)
+    rel = (err / ref["point"][v].norm(dim=-1)).max().item()
+    ms = time_calls_us(lambda: triangulate_pairs_batch(**kw), n=20,
+                       warmup=3) / 1e3
+    phase("triangulate_pairs", pairs=10, slots=1024, valid=int(v.sum()),
+          identical=same, max_rel_point_err=rel, gpu_ms=ms, cpu_ms=cpu_ms)
+    check(all(same.values()), f"CPU and GPU triangulation differ: {same}")
+    check(int(v.sum()) > 0, "no triangulated point")
 
 
 def _centres(system) -> dict:
@@ -419,6 +570,9 @@ def _centres(system) -> dict:
 
 
 def cpu_gpu_phase(dev):
+    """64 dense-keyframe frames with the full back-end on both devices:
+    the run that makes every back-end fire (triangulation, fusion, local
+    BA, simplification)."""
     out = {}
     for d in ("cpu", dev):
         system, frames = smooth_lane(7, 400, d, dense=True)
@@ -427,16 +581,22 @@ def cpu_gpu_phase(dev):
     c, g = out["cpu"], out[str(dev)]
     cc, gc = _centres(c), _centres(g)
     diff = max(np.linalg.norm(cc[k] - gc[k]) for k in cc) if cc else np.inf
+    bc, bg = backend_counts(c), backend_counts(g)
     phase("cpu_vs_gpu", tracked_cpu=len(c.tracker.trajectory),
           tracked_gpu=len(g.tracker.trajectory),
           keyframes_cpu=c.map.n_keyframes, keyframes_gpu=g.map.n_keyframes,
-          max_centre_diff_m=float(diff))
+          points_cpu=c.map.n_points, points_gpu=g.map.n_points,
+          backend_cpu=bc, backend_gpu=bg, max_centre_diff_m=float(diff))
     check(len(c.tracker.trajectory) == len(g.tracker.trajectory) == 64,
           "CPU and GPU tracked counts differ")
     check(cc.keys() == gc.keys(), "CPU and GPU tracked different frames")
     check(c.map.n_keyframes == g.map.n_keyframes,
           "CPU and GPU keyframe counts differ")
     check(diff < 1e-3, f"camera centres differ by {diff} m")
+    for k in ("lba_runs", "triangulated", "fused", "culled"):
+        check(bg[k] >= 1, f"no {k} on the card: {bg}")
+        check(abs(bg[k] - bc[k]) <= 0.1 * bc[k],
+              f"{k}: GPU {bg[k]}, CPU {bc[k]}")
 
 
 def main() -> int:
@@ -454,10 +614,13 @@ def main() -> int:
     lane = render_pixels_lane()
     fast = fast_phase(dev, lane)
     patch = patch_phase(dev)
-    smooth_launches = slice_phase(dev)
+    smooth_launches, smooth = slice_phase(dev)
+    kf_cycle_phase(smooth)
     pix = pixels_phase(dev, lane)
     cpu_gpu_phase(dev)
     pixels_cpu_gpu_phase(dev, lane)
+    ba_phase(dev)
+    triangulation_phase(dev)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "pose_refine_fused",

@@ -4,14 +4,19 @@
                                           [--frames 400] [--window 128]
 
 ``smooth`` runs chip_smoke.py's smooth lane (6000-point world, seed 7, 1024
-feature slots, 2048 pinned local-map slots, two-stage; frames and window
-from the options); ``pixels`` runs its pixels lane (160 rendered 752x480
-stereo pairs, chunk and window 32; the options do not apply) and also
-times the front-end alone on one chunk (median of CUDA-event times).  Each
-lane runs once to warm up and once under torch.profiler; the script prints
-one JSON object: wall time, summed device kernel time, the device's busy
-share of the wall, the launch counts, and the top device kernels by total
-time.  Needs a CUDA device.
+feature slots, 2048 pinned local-map slots, two-stage, the full keyframe
+back-end; frames and window from the options); ``pixels`` runs its pixels
+lane (160 rendered 752x480 stereo pairs, chunk and window 32, reduced
+back-end; the options do not apply) and also times the front-end alone on
+one chunk (median of CUDA-event times).  Each lane runs once to warm up and
+once under torch.profiler; the script prints one JSON object: wall time,
+summed device kernel time, the device's busy share of the wall, the launch
+counts, the top device kernels by total time, and the keyframe cycle's
+share: the device kernels launched while the local mapper dispatched or
+committed a keyframe cycle (triangulation, fusion, local BA and the
+back-end queues it feeds), with their count and device time, and the same
+for each stage's dispatch (triangulation, fusion, local BA).  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -47,6 +52,43 @@ def _frontend_us(lane, dev) -> float:
         relaxed=bool(s.fd_relaxed_stereo)), n=20, warmup=3)
 
 
+KF_CYCLE = "keyframe_cycle"
+
+
+def _annotated(fn, name):
+    def wrapper(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+def _kernels_under(events, name):
+    """Device kernels launched by host ops inside ``name`` ranges: the
+    number of ranges, the kernels' count and their summed device time
+    (us)."""
+    ranges, count, us = 0, 0, 0.0
+    seen = set()
+
+    def walk(ev):
+        nonlocal count, us
+        if id(ev) in seen:
+            return
+        seen.add(id(ev))
+        for k in getattr(ev, "kernels", []):
+            count += 1
+            us += k.duration
+        for child in ev.cpu_children:
+            walk(child)
+
+    for ev in events:
+        # the host-side range (each annotation also has a device-side one)
+        if (ev.name == name
+                and ev.device_type == torch.autograd.DeviceType.CPU):
+            ranges += 1
+            walk(ev)
+    return ranges, count, us
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--lane", choices=("smooth", "pixels"), default="smooth")
@@ -71,6 +113,19 @@ def main() -> int:
         torch.cuda.synchronize()
         system, frames = smooth_lane(7, args.frames, dev)
         runner = WindowedRunner(system, window=args.window)
+    # mark the keyframe cycle's host ranges: kernels launched inside them
+    # are the cycle's share
+    lm = system.local_mapper
+    for name in ("dispatch_deferred", "commit_deferred"):
+        setattr(lm, name, _annotated(getattr(lm, name), KF_CYCLE))
+    # and each stage's dispatch inside it
+    stages = {"triangulation": (lm, "_tri_dispatch"),
+              "fusion": (lm.map_searcher, "dispatch"),
+              "lba": (lm.lba, "dispatch")}
+    for stage, (obj, name) in stages.items():
+        if obj is not None:
+            setattr(obj, name, _annotated(getattr(obj, name),
+                                          f"{KF_CYCLE}.{stage}"))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     PF.LAUNCHES = 0
@@ -80,14 +135,25 @@ def main() -> int:
         runner.run(frames)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # device kernels only: the keyframe-cycle annotation also shows up with
+    # a device-side range, which is not a kernel
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith(KF_CYCLE)]
     if not events:
         events = [e for e in prof.key_averages()
-                  if getattr(e, "self_device_time_total", 0) > 0]
+                  if getattr(e, "self_device_time_total", 0) > 0
+                  and not e.key.startswith(KF_CYCLE)]
     dev_us = sum(e.self_device_time_total for e in events)
     n_kernels = sum(e.count for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:args.top]
+    fevents = prof.events()
+    _, cycle_kernels, cycle_us = _kernels_under(fevents, KF_CYCLE)
+    per_stage = {}
+    for stage in stages:
+        n, k, us = _kernels_under(fevents, f"{KF_CYCLE}.{stage}")
+        per_stage[stage] = {"dispatches": n, "device_kernels": k,
+                            "device_ms": us / 1e3}
     print(card_line())
     print(json.dumps({
         "lane": args.lane, "frames": len(frames),
@@ -96,7 +162,14 @@ def main() -> int:
         "device_busy_share": dev_us / 1e6 / wall,
         "device_kernels": n_kernels, "pose_kernel_launches": PF.LAUNCHES,
         "fast_kernel_launches": OK.FAST_LAUNCHES,
-        "device_calls": runner.n_device_calls, **extra,
+        "device_calls": runner.n_device_calls,
+        "keyframes": system.map.n_keyframes,
+        "kf_cycle_device_kernels": cycle_kernels,
+        "kf_cycle_device_s": cycle_us / 1e6,
+        "kf_cycle_share_of_device_time": cycle_us / max(dev_us, 1e-9),
+        "kf_cycle_share_of_kernels": cycle_kernels / max(n_kernels, 1),
+        "kf_cycle_stages": per_stage,
+        **extra,
         "top": [{"name": e.key[:80], "count": e.count,
                  "total_ms": e.self_device_time_total / 1e3}
                 for e in top],

@@ -158,8 +158,10 @@ def se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
-    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
+    # the [0, 0, 0, 1] row from a device-side eye: writing a Python scalar
+    # into a CUDA tensor can copy it from the host, which syncs
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(
+        batch + (1, 4))
     top = torch.cat([R, t[..., None]], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 

@@ -15,6 +15,7 @@ import torch
 from snakeslam_tpu_torch.map.slam_map import SlamMap
 from snakeslam_tpu_torch.ops.descriptors import unpack_bits
 from snakeslam_tpu_torch.ops.matching import LocalMapPoints
+from snakeslam_tpu_torch.tracking.staging import upload
 
 
 def _bucket(n: int, minimum: int = 4096) -> int:
@@ -75,8 +76,7 @@ class DeviceMapMirror:
         table[:, 7] = smap.pt_ref_level[:cap]
         table[:, 8:16] = np.ascontiguousarray(
             smap.pt_desc[:cap]).view(np.float32)
-        # a blocking copy from pageable memory: ``table`` may be freed after
-        self._table = torch.from_numpy(table).to(self.device)
+        self._table = upload(table, self.device)
         self.capacity = cap
         self.synced_state = smap.state
 
@@ -99,7 +99,6 @@ class DeviceMapMirror:
             aux[:n, 2] = octaves[:n]
         else:
             aux[:, 2] = -1.0
-        lm = _gather_points(self._table,
-                            torch.from_numpy(ids_pad).to(self.device),
-                            torch.from_numpy(aux).to(self.device))
+        lm = _gather_points(self._table, upload(ids_pad, self.device),
+                            upload(aux, self.device))
         return lm, ids.astype(np.int64)

@@ -664,11 +664,15 @@ class SlamMap:
             m = self._device_mirror = DeviceMapMirror(self, device)
         return m
 
-    def kf_feature_pool(self, n_slots: int):
-        """Shared device-resident keyframe feature pool (map/kf_pool.py)."""
-        raise NotImplementedError(
-            "kf_feature_pool: the keyframe feature pool is ported with the "
-            "deferred keyframe cycle (ROADMAP.md queue A, step 8)")
+    def kf_feature_pool(self, n_slots: int, device):
+        """Shared device-resident keyframe feature pool (map/kf_pool.py),
+        created lazily; erasing a keyframe frees its row."""
+        pool = getattr(self, "_kf_feature_pool", None)
+        if pool is None or pool.n_slots != n_slots:
+            from snakeslam_tpu_torch.map.kf_pool import KFFeaturePool
+            pool = self._kf_feature_pool = KFFeaturePool(self, n_slots,
+                                                         device)
+        return pool
 
     def validate(self) -> list[str]:
         """Full map consistency check (Map::valid analog, reference:
@@ -717,9 +721,16 @@ class SlamMap:
         clear (unlike the JAX package, which restarts it at 0): every cache
         keyed on ``state`` — the device mirror, the tracker's fine snapshot —
         then goes stale by construction and cannot serve the old map's rows
-        when the new map's counter reaches a previously synced value."""
+        when the new map's counter reaches a previously synced value.  The
+        caches keyed on keyframe ids (the keyframe feature pool, the staged
+        keyframe features) are dropped: ids restart at 0, so the new map's
+        keyframe 0 would otherwise hit the old map's row, and the pool's
+        erase hook would be gone with the old listener list (the JAX package
+        keeps both)."""
         listeners = self.on_transform
         state = self.state
+        self.__dict__.pop("_kf_feature_pool", None)
+        self.__dict__.pop("_kf_feat_cache", None)
         self.__init__(self.max_keyframes, self.max_points, self.max_features)
         self.on_transform = listeners
         self.state = state + 1

@@ -1,34 +1,58 @@
-"""Local mapping: keyframe insertion and map maintenance.
+"""Local mapping: keyframe insertion and the per-keyframe back-end cycle.
 
-Counterpart of ``snakeslam_tpu/mapping/local_mapping.py`` up to the
-keyframe's synchronous half: observation association with duplicate
-arbitration, stereo/depth point insertion, spanning-tree update and median
-depth (``process_sync``), plus the deferred-cycle skeleton
-(``dispatch_deferred`` / ``commit_deferred`` / ``flush_deferred``) with the
-recent-point culling and the dirty-point refresh it runs.  Triangulation,
-neighbour fusion and local BA — the device work of the deferred cycle —
-arrive with ROADMAP.md queue A step 8; the loop, simplification and
-deferred-mapper back-ends with step 9.  Until then this is the JAX
-package's own configuration with ``lba=None``, no map searcher, no
-back-ends and no triangulation dispatch.
+Counterpart of ``snakeslam_tpu/mapping/local_mapping.py`` (the reference's
+LocalMapping::Process fan-out hub): the synchronous half (observation
+association with duplicate arbitration, stereo/depth point insertion,
+spanning-tree update, median depth) and the deferred cycle — recent-point
+culling, triangulation against the ``TRI_NB`` best covisible keyframes,
+bidirectional neighbour fusion and the local BA dispatched back-to-back
+against one snapshot (``dispatch_deferred``), then one readback and the
+host commits (``commit_deferred``), then the back-end queues
+(simplification, deferred mapper).  The runner software-pipelines cycles:
+cycle k+1 is dispatched before cycle k commits.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from snakeslam_tpu_torch.core.camera import Pinhole
+from snakeslam_tpu_torch.core.pyramid import ScalePyramid
+from snakeslam_tpu_torch.map.kf_pool import pool_features
 from snakeslam_tpu_torch.map.slam_map import FrameData, SlamMap
+from snakeslam_tpu_torch.mapping.fusion import MapSearcher
+from snakeslam_tpu_torch.ops.depth_grid import keyframe_depth_grid
 from snakeslam_tpu_torch.ops.descriptors import hamming_np
+from snakeslam_tpu_torch.ops.triangulate_pairs import triangulate_pairs_batch
 from snakeslam_tpu_torch.system.settings import InputType, Settings
+from snakeslam_tpu_torch.tracking.staging import HostCopy, upload
+
+TRI_NB = 10  # fixed neighbour fan-out width (LocalMapping.cpp:317-329):
+             # one shape regardless of covisible count
 
 
 class LocalMapper:
-    def __init__(self, settings: Settings, smap: SlamMap):
+    def __init__(self, settings: Settings, smap: SlamMap, device, lba=None,
+                 backends=None):
         self.s = settings
         self.map = smap
+        self.device = torch.device(device)
+        self.lba = lba
+        self.backends = backends or []  # further queues (simplification, ...)
+        self.map_searcher = MapSearcher(settings, smap, self.device)
         self.recent_points: list[tuple[int, int]] = []  # (pt, created_at_kf)
+        dev = self.device
+        pyr = ScalePyramid.create(settings.fd_levels,
+                                  settings.fd_scale_factor)
+        self.cam = Pinhole.create(settings.fx, settings.fy, settings.cx,
+                                  settings.cy, device=dev)
+        self.bf = torch.tensor(settings.bf, dtype=torch.float32, device=dev)
+        self.scales = torch.as_tensor(pyr.scales, device=dev)
+        self.inv_sigma2 = torch.as_tensor(pyr.inv_sigma2, device=dev)
         self._last_kf_frame_id = -10
         self._deferred: list[tuple[int, FrameData]] = []
+        self.n_triangulated = 0   # points created by _tri_commit
 
     def on_map_initialized(self, kf: int):
         self._last_kf_frame_id = self.map.kf_frame_id[kf]
@@ -40,7 +64,8 @@ class LocalMapper:
     def insert_keyframe(self, frame: FrameData, prev_kf: int,
                         defer: bool = False) -> int:
         """Allocate the keyframe and run the synchronous half; the deferred
-        cycle runs now, or (defer=True) at flush_deferred()."""
+        cycle runs now, or (defer=True) at flush_deferred() / when the
+        windowed runner dispatches it, overlapping the tracking windows."""
         if frame.frame_id - self._last_kf_frame_id < 1:
             return -1
         n_inl = int((frame.matches >= 0).sum())
@@ -64,7 +89,9 @@ class LocalMapper:
 
     def flush_deferred(self) -> int:
         """Run the queued deferred cycles in insertion order, pipelined:
-        cycle k+1 is dispatched before cycle k commits."""
+        cycle k+1 is dispatched before cycle k commits, so k+1 works on a
+        one-cycle-stale snapshot (the reference's async back-end staleness;
+        the commits' per-element guards were built for it)."""
         n = 0
         prev = None
         while self._deferred:
@@ -74,12 +101,23 @@ class LocalMapper:
                 continue
             tok = self.dispatch_deferred(kf)
             if prev is not None:
-                self.commit_deferred(prev)
+                self.commit_deferred_checked(prev)
             prev = tok
             n += 1
         if prev is not None:
-            self.commit_deferred(prev)
+            self.commit_deferred_checked(prev)
         return n
+
+    def commit_deferred_checked(self, tok: dict):
+        """Commit a pipelined cycle, re-running it from scratch if a
+        whole-map rebase landed after its dispatch (its device results are
+        in the old basis)."""
+        if getattr(self.map, "n_transforms", 0) != tok["n_transforms"]:
+            kf = tok["kf"]
+            if self.map.kf_valid[kf]:
+                self.process_deferred(kf, None)
+            return
+        self.commit_deferred(tok)
 
     # ------------------------------------------------------------------
     # the fan-out hub (LocalMapping.cpp:37-117)
@@ -96,20 +134,52 @@ class LocalMapper:
         self.commit_deferred(self.dispatch_deferred(kf))
 
     def dispatch_deferred(self, kf: int) -> dict:
-        """Dispatch half of the per-keyframe cycle.  With triangulation,
-        fusion and LBA not yet ported it culls the recent points and has
-        no device work to queue."""
+        """Dispatch half of the per-keyframe cycle: triangulation,
+        bidirectional neighbour fusion and the local BA queued back-to-back
+        against the same pre-commit snapshot, their results copied to
+        pinned host memory behind one CUDA event.  Returns the token for
+        commit_deferred; tracking may go on while the device works."""
         self._cull_recent_points(kf)
-        return dict(kf=kf)
+        tri = self._tri_dispatch(kf)
+        fuse = (self.map_searcher.dispatch(kf)
+                if self.map_searcher is not None else None)
+        ba = self.lba.dispatch(kf) if self.lba is not None else None
+        arrays = []
+        if tri is not None:
+            arrays += [tri[0]["valid"], tri[0]["match_b"], tri[0]["point"]]
+        if fuse is not None:
+            arrays += fuse[0]
+        if ba is not None:
+            arrays += ba[0]
+        return dict(kf=kf, tri=tri, fuse=fuse, ba=ba, copy=HostCopy(arrays),
+                    n_transforms=getattr(self.map, "n_transforms", 0))
+
+    def deferred_ready(self, token: dict) -> bool:
+        """True when every result of a dispatched cycle has landed on the
+        host (commit_deferred will not block)."""
+        return token["copy"].ready()
 
     def commit_deferred(self, token: dict):
-        """Commit half: refresh descriptors / normals of the keyframe's
-        points whose observations changed."""
+        """Blocking half: wait for the readback, then the host commits."""
         kf = token["kf"]
         if not self.map.kf_valid[kf]:
             return
+        tri, fuse, ba = token["tri"], token["fuse"], token["ba"]
+        fetched = token["copy"].wait()
+        if tri is not None:
+            self._tri_commit(kf, fetched[0], fetched[1],
+                             fetched[2].astype(np.float64), tri[1])
+            del fetched[:3]
+        if fuse is not None:
+            nf = len(fuse[0])
+            self.map_searcher.commit(kf, fetched[:nf], fuse[1])
+            del fetched[:nf]
         self.map.update_points_bulk(self.map.keyframe_points(kf),
                                     only_dirty=True)
+        if ba is not None:
+            self.lba.commit(kf, fetched, ba[1])
+        for b in self.backends:
+            b.add(kf)
 
     # ------------------------------------------------------------------
 
@@ -192,3 +262,106 @@ class LocalMapper:
             else:
                 kept.append((pt, created_kf))
         self.recent_points = kept
+
+    # ------------------------------------------------------------------
+
+    def _tri_dispatch(self, kf: int, num_neighbors: int = 10,
+                      feature_distance: int = 50,
+                      epipolar_distance: float = 4.0,
+                      error_mono: float = 2.1):
+        """Async half of triangulation: stage + queue, no blocking.  One
+        batched call covers every neighbour pair, padded to TRI_NB rows
+        (pad rows get free_b all False: no candidates)."""
+        smap = self.map
+        dev = self.device
+        ids, w = smap.covisible_keyframes(kf, min_weight=15)
+        neighbors = ids[:min(num_neighbors, TRI_NB)]
+        if len(neighbors) == 0:
+            return None
+        n_slots = self.s.feature_slots
+        free_a = np.zeros(n_slots, dtype=bool)
+        na = int(smap.kf_n_feat[kf])
+        free_a[:na] = smap.kf_obs[kf, :na] < 0
+
+        padded = [int(n) for n in neighbors]
+        padded += [padded[-1]] * (TRI_NB - len(neighbors))
+        pool = smap.kf_feature_pool(n_slots, dev)
+        slots = pool.slots_for([kf] + padded)
+        free_b = np.zeros((TRI_NB, n_slots), dtype=bool)
+        for i, nb in enumerate(neighbors):
+            nbn = int(smap.kf_n_feat[nb])
+            free_b[i, :nbn] = smap.kf_obs[nb, :nbn] < 0
+        # depth-completion grid: a depth prior per free feature lets the
+        # matcher retry epipolar-ambiguous matches in a projection window
+        grid = keyframe_depth_grid(smap, kf, self.s.width, self.s.height)
+
+        slots_t = upload(slots.astype(np.int64), dev)
+        out = triangulate_pairs_batch(
+            pool_features(pool.arrays, slots_t[0]),
+            pool_features(pool.arrays, slots_t[1:]),
+            upload(free_a, dev), upload(free_b, dev),
+            upload(smap.kf_pose[kf].astype(np.float32), dev),
+            upload(smap.kf_pose[padded].astype(np.float32), dev),
+            self.cam, self.bf, self.scales, self.inv_sigma2,
+            feature_distance=feature_distance,
+            epipolar_distance=epipolar_distance,
+            error_mono=error_mono,
+            grid_a=upload(grid, dev),
+            bounds_wh=(float(self.s.width), float(self.s.height)),
+            th_depth=float(self.s.th_depth),
+        )
+        return out, dict(neighbors=neighbors, free_a=free_a)
+
+    def _tri_commit(self, kf: int, valid_all, match_all, pts_all, ctx):
+        """Host commit half of triangulation: earlier neighbours claim
+        features first; freeness is re-checked at commit time, since the
+        pipelined fuse / association passes may have linked some of these
+        feature slots since dispatch."""
+        smap = self.map
+        if not smap.kf_valid[kf]:
+            return 0  # culled since dispatch (pipelined flush)
+        neighbors = ctx["neighbors"]
+        free_a = ctx["free_a"]
+        sel_i: list[np.ndarray] = []
+        sel_j: list[np.ndarray] = []
+        sel_nb: list[int] = []
+        sel_wp: list[np.ndarray] = []
+        free_now = free_a & (smap.kf_obs[kf, :len(free_a)] < 0)
+        for bi, nb in enumerate(int(n) for n in neighbors):
+            cand = np.nonzero(valid_all[bi] & free_now)[0]
+            if len(cand) == 0:
+                continue
+            j = match_all[bi][cand]
+            ok = smap.kf_obs[nb, j] < 0
+            # a neighbour feature may win multiple rows; keep the first
+            _, first = np.unique(j, return_index=True)
+            keep = np.zeros(len(j), dtype=bool)
+            keep[first] = True
+            cand, j = cand[ok & keep], j[ok & keep]
+            if len(cand) == 0:
+                continue
+            free_now[cand] = False
+            sel_i.append(cand)
+            sel_j.append(j)
+            sel_nb.append(nb)
+            sel_wp.append(pts_all[bi][cand])
+        if not sel_i:
+            return 0
+        all_i = np.concatenate(sel_i)
+        wps = np.concatenate(sel_wp)
+        cam_pos = -smap.kf_pose[kf][:3, :3].T @ smap.kf_pose[kf][:3, 3]
+        normals = cam_pos[None, :] - wps
+        depths = np.linalg.norm(normals, axis=1)
+        normals = normals / np.maximum(depths, 1e-9)[:, None]
+        ids = smap.allocate_points_bulk(
+            wps, smap.kf_feat_desc[kf, all_i], kf, depths,
+            smap.kf_feat_octave[kf, all_i], normals,
+        )
+        smap.add_observations_bulk(kf, all_i, ids)
+        off = 0
+        for cand, j, nb in zip(sel_i, sel_j, sel_nb):
+            smap.add_observations_bulk(nb, j, ids[off:off + len(cand)])
+            off += len(cand)
+        self.recent_points.extend((int(p), kf) for p in ids)
+        self.n_triangulated += len(ids)
+        return len(ids)

@@ -61,10 +61,17 @@ def solve6x6_psd(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def solve_psd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b for symmetric positive-definite A via Cholesky.
 
-    b may be (..., N) or (..., N, K); A is (..., N, N)."""
-    L = torch.linalg.cholesky(A)
+    b may be (..., N) or (..., N, K); A is (..., N, N).  A matrix that is
+    not positive-definite yields NaN, as the JAX function does, instead of
+    raising: ``cholesky_ex`` leaves its error flag on the device, so the
+    solve never waits on the host, and callers (the LBA commit) drop the
+    non-finite result."""
+    L, info = torch.linalg.cholesky_ex(A)
+    L = torch.where((info == 0)[..., None, None], L,
+                    torch.full_like(L, float("nan")))
     vec = b.ndim == A.ndim - 1
     if vec:
         b = b[..., None]
-    x = torch.cholesky_solve(b, L)
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)
     return x[..., 0] if vec else x

@@ -91,26 +91,38 @@ def _resolve_matches(best_feat: torch.Tensor, best_dist: torch.Tensor,
                      point_ok: torch.Tensor, n_features: int) -> torch.Tensor:
     """Conflict-resolving commit: each feature accepts the best point,
     minimum descriptor distance first, point index as tie-break, by a
-    segment-min over int64 keys into an ``n_features + 1`` buffer whose
-    last slot collects the rejected points.
+    segment-min over int64 keys into an ``n_features + 1`` buffer per batch
+    row whose last slot collects the rejected points.  Inputs are (..., P);
+    leading dims are independent problems resolved in one scatter.
 
-    Returns feat_point: (N,) int32 winning point per feature, -1 if none."""
-    P = best_feat.shape[0]
+    Returns feat_point: (..., N) int32 winning point per feature, -1 if
+    none."""
+    batch = best_feat.shape[:-1]
+    P = best_feat.shape[-1]
     dev = best_feat.device
-    ar = torch.arange(P, dtype=torch.int64, device=dev)
-    seg = torch.where(point_ok, best_feat.long(), n_features)
-    key = best_dist.long() * (P + 1) + ar
-    key = torch.where(point_ok, key, _KEY_MAX)
-    seg_min = torch.full((n_features + 1,), _KEY_MAX, dtype=torch.int64,
+    nb = 1
+    for d in batch:
+        nb *= d
+    stride = n_features + 1
+    row = torch.arange(nb, dtype=torch.int64, device=dev)[:, None] * stride
+    ok = point_ok.reshape(nb, P)
+    feat = best_feat.reshape(nb, P).long()
+    ar = torch.arange(P, dtype=torch.int64, device=dev).expand(nb, P)
+    seg = torch.where(ok, feat, n_features) + row
+    key = best_dist.reshape(nb, P).long() * (P + 1) + ar
+    key = torch.where(ok, key, _KEY_MAX)
+    seg_min = torch.full((nb * stride,), _KEY_MAX, dtype=torch.int64,
                          device=dev)
-    seg_min.scatter_reduce_(0, seg, key, "amin", include_self=False)
-    winner = point_ok & (key == seg_min[seg])
-    scatter_idx = torch.where(winner, best_feat.long(), n_features)
-    feat_point = torch.full((n_features + 1,), -1, dtype=torch.int32,
+    seg_min.scatter_reduce_(0, seg.reshape(-1), key.reshape(-1), "amin",
+                            include_self=False)
+    winner = ok & (key == seg_min[seg])
+    scatter_idx = torch.where(winner, feat, n_features) + row
+    feat_point = torch.full((nb * stride,), -1, dtype=torch.int32,
                             device=dev)
-    # winners are unique per feature; only the dump slot is written twice
-    feat_point[scatter_idx] = ar.to(torch.int32)
-    return feat_point[:n_features]
+    # winners are unique per feature; only the dump slots are written twice
+    feat_point[scatter_idx.reshape(-1)] = ar.reshape(-1).to(torch.int32)
+    return feat_point.view(nb, stride)[:, :n_features].reshape(
+        batch + (n_features,))
 
 
 def _common_point_gates(lm: LocalMapPoints, frame: FrameFeatures, pose_cw,
@@ -119,7 +131,7 @@ def _common_point_gates(lm: LocalMapPoints, frame: FrameFeatures, pose_cw,
 
     Returns uv_p (P,2), z (P,), dist (P,), view_cos (P,), in_view (P,)."""
     xmin, ymin, xmax, ymax = image_bounds
-    pc = lie.transform_points(pose_cw, lm.position)
+    pc = lie.transform_points(pose_cw, lm.position)   # (..., P, 3)
     z = pc[..., 2]
     zs = torch.where(torch.abs(z) < eps, torch.full_like(z, eps), z)
     uv_p = torch.stack(
@@ -127,41 +139,43 @@ def _common_point_gates(lm: LocalMapPoints, frame: FrameFeatures, pose_cw,
         dim=-1,
     )
     cam_pos = lie.translation(lie.se3_inverse(pose_cw))
-    po = cam_pos[None, :] - lm.position
+    po = cam_pos[..., None, :] - lm.position
     dist = torch.linalg.norm(po, dim=-1)
     view_cos = torch.sum(po * lm.normal, dim=-1) / torch.clamp(dist, min=eps)
     in_view = (
         lm.valid
         & (z > 0)
-        & (uv_p[:, 0] >= xmin) & (uv_p[:, 0] < xmax)
-        & (uv_p[:, 1] >= ymin) & (uv_p[:, 1] < ymax)
+        & (uv_p[..., 0] >= xmin) & (uv_p[..., 0] < xmax)
+        & (uv_p[..., 1] >= ymin) & (uv_p[..., 1] < ymax)
     )
     return uv_p, z, dist, view_cos, in_view
 
 
 def _candidate_mask(uv_p, z, radius, frame: FrameFeatures, oct_min, oct_max,
                     bf, feat_free):
-    """(P, N) candidate gate: radius, octave window, stereo consistency."""
-    dx = uv_p[:, None, 0] - frame.uv[None, :, 0]
-    dy = uv_p[:, None, 1] - frame.uv[None, :, 1]
-    in_radius = (dx * dx + dy * dy) < (radius[:, None] ** 2)
-    oct_ok = (frame.octave[None, :] >= oct_min[:, None]) & (
-        frame.octave[None, :] <= oct_max[:, None]
-    )
+    """(..., P, N) candidate gate: radius, octave window, stereo
+    consistency."""
+    dx = uv_p[..., :, None, 0] - frame.uv[..., None, :, 0]
+    dy = uv_p[..., :, None, 1] - frame.uv[..., None, :, 1]
+    in_radius = (dx * dx + dy * dy) < (radius[..., :, None] ** 2)
+    octave = frame.octave[..., None, :]
+    oct_ok = (octave >= oct_min[..., :, None]) & (
+        octave <= oct_max[..., :, None])
     # stereo right-point consistency: expected u_r = u - bf / z
-    expected_ur = uv_p[:, 0:1] - bf / torch.clamp(z[:, None], min=1e-6)
-    has_right = frame.right[None, :] > 0
-    stereo_ok = ~has_right | (
-        torch.abs(expected_ur - frame.right[None, :]) <= radius[:, None] * 0.5)
-    return (in_radius & oct_ok & stereo_ok & frame.valid[None, :]
-            & feat_free[None, :])
+    expected_ur = uv_p[..., :, 0:1] - bf / torch.clamp(z[..., :, None],
+                                                        min=1e-6)
+    right = frame.right[..., None, :]
+    stereo_ok = ~(right > 0) | (
+        torch.abs(expected_ur - right) <= radius[..., :, None] * 0.5)
+    return (in_radius & oct_ok & stereo_ok & frame.valid[..., None, :]
+            & feat_free[..., None, :])
 
 
 def _best_two(Hm: torch.Tensor):
-    """Row-wise best and second-best (value, first index) of (P, N)."""
-    best, best_idx = torch.min(Hm, dim=1)
-    Hm2 = Hm.scatter(1, best_idx[:, None], INVALID_DIST)
-    best2, best2_idx = torch.min(Hm2, dim=1)
+    """Row-wise best and second-best (value, first index) of (..., P, N)."""
+    best, best_idx = torch.min(Hm, dim=-1)
+    Hm2 = Hm.scatter(-1, best_idx[..., None], INVALID_DIST)
+    best2, best2_idx = torch.min(Hm2, dim=-1)
     return best, best_idx, best2, best2_idx
 
 
@@ -182,7 +196,12 @@ def search_by_projection_fine(
     scale-region + view-cos gates, viewing-cos radius, predicted octave
     window, best/second-best with the level-aware ratio test.
 
-    Returns dict: feat_point (N,) int32, visible (P,) bool, n_matches."""
+    ``frame``, ``feat_free`` and ``pose_cw`` may carry leading batch dims
+    (one frame per row, against the same ``lm``): the whole batch is one
+    pass of batched ops.
+
+    Returns dict: feat_point (..., N) int32, visible (..., P) bool,
+    n_matches (...,)."""
     uv_p, z, dist, view_cos, in_view = _common_point_gates(
         lm, frame, pose_cw, cam, image_bounds)
     min_d, max_d = min_max_distance(st, lm.ref_depth, lm.ref_level)
@@ -194,24 +213,24 @@ def search_by_projection_fine(
 
     cand = _candidate_mask(uv_p, z, r, frame, pred - 1, pred + 1, bf,
                            feat_free)
-    cand = cand & visible[:, None]
+    cand = cand & visible[..., :, None]
 
     H = hamming_matrix(lm.desc_bits, frame.desc_bits)
     Hm = torch.where(cand, H, INVALID_DIST)
     best, best_idx, best2, best2_idx = _best_two(Hm)
-    lvl1 = frame.octave[best_idx]
-    lvl2 = frame.octave[best2_idx]
+    lvl1 = torch.gather(frame.octave, -1, best_idx)
+    lvl2 = torch.gather(frame.octave, -1, best2_idx)
 
     ok = (best <= feature_error) & visible
     # the ratio applies only when best and second-best share an octave
     same_level = (lvl1 == lvl2) & (best2 < INVALID_DIST)
     ok = ok & (~same_level | (best.float() <= ratio * best2.float()))
 
-    feat_point = _resolve_matches(best_idx, best, ok, frame.uv.shape[0])
+    feat_point = _resolve_matches(best_idx, best, ok, frame.uv.shape[-2])
     return {
         "feat_point": feat_point,
         "visible": visible,
-        "n_matches": torch.sum(feat_point >= 0),
+        "n_matches": torch.sum(feat_point >= 0, dim=-1),
     }
 
 

@@ -1,0 +1,188 @@
+"""Local bundle adjustment: window selection, packing, solve, write-back.
+
+Counterpart of ``snakeslam_tpu/optim/lba.py`` (the reference's
+LocalBundleAdjustment): window = up to 15 covisible + 15 temporally
+previous keyframes plus fixed boundary keyframes observing shared points,
+solve (3 LM iterations), chi2 outlier classification and erase, and a
+guarded commit.  The solve is ``ops/ba.solve_ba`` with fixed (C, P, M)
+slots; P is bucketed so the shapes take at most three values per run.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from snakeslam_tpu_torch.core.camera import Pinhole
+from snakeslam_tpu_torch.core.pyramid import ScalePyramid
+from snakeslam_tpu_torch.map.slam_map import SlamMap
+from snakeslam_tpu_torch.ops import ba as BA
+from snakeslam_tpu_torch.optim.packing import (
+    erase_outlier_observations,
+    pack_observations,
+)
+from snakeslam_tpu_torch.system.settings import Settings
+
+F32 = np.float32
+
+
+class LocalBA:
+    def __init__(self, settings: Settings, smap: SlamMap, device):
+        self.s = settings
+        self.map = smap
+        self.device = torch.device(device)
+        self.cam = Pinhole.create(settings.fx, settings.fy, settings.cx,
+                                  settings.cy, device=self.device)
+        self.bf = torch.tensor(settings.bf, dtype=torch.float32,
+                               device=self.device)
+        self.pyramid = ScalePyramid.create(settings.fd_levels,
+                                           settings.fd_scale_factor)
+        self.n_runs = 0
+
+    def select_window(self, kf: int):
+        """Window KFs (optimized) + boundary KFs (fixed)."""
+        smap = self.map
+        ids, w = smap.covisible_keyframes(kf, min_weight=1)
+        window = [kf] + [int(k) for k in ids[:15]]
+        # previous keyframes along the temporal chain
+        cur = kf
+        for _ in range(15):
+            prev = smap.kf_prev[cur]
+            if prev < 0 or not smap.kf_valid[prev]:
+                break
+            if prev not in window:
+                window.append(int(prev))
+            cur = prev
+        window = window[: self.s.lba_cam_slots - 8]  # leave room for boundary
+
+        # points observed by the window
+        pts = np.unique(np.concatenate(
+            [smap.keyframe_points(k) for k in window]
+        )) if window else np.array([], dtype=np.int64)
+        pts = pts[smap.pt_valid[pts]]
+        if len(pts) > self.s.lba_point_slots:
+            pts = pts[: self.s.lba_point_slots]
+
+        # boundary: other KFs observing those points -> fixed
+        obs_kfs = smap.pt_obs_kf[pts].ravel()
+        obs_kfs = np.unique(obs_kfs[obs_kfs >= 0])
+        in_window = np.zeros(smap.max_keyframes, dtype=bool)
+        in_window[window] = True
+        boundary = [int(k) for k in obs_kfs if not in_window[k]]
+        boundary = boundary[: self.s.lba_cam_slots - len(window)]
+        return window, boundary, pts
+
+    def pack(self, window, boundary, pts):
+        smap = self.map
+        C = self.s.lba_cam_slots
+        # point slots bucketed in powers of two from max(1024, slots / 4)
+        # up to the configured cap: at most three shapes per run
+        p_bucket = max(1024, self.s.lba_point_slots // 4)
+        while p_bucket < len(pts):
+            p_bucket *= 2
+        P = min(p_bucket, self.s.lba_point_slots)
+        M = self.s.lba_obs_slots
+        cams = window + boundary
+
+        cam_pose = np.tile(np.eye(4, dtype=F32), (C, 1, 1))
+        cam_fixed = np.ones(C, dtype=bool)
+        cam_valid = np.zeros(C, dtype=bool)
+        cam_pose[: len(cams)] = smap.kf_pose[cams]
+        cam_valid[: len(cams)] = True
+        cam_fixed[: len(window)] = False
+        # gauge: boundary KFs are the fixed anchors; with no boundary, hold
+        # the oldest window KF fixed
+        if len(boundary) == 0 and len(window) > 1:
+            cam_fixed[len(window) - 1] = True
+
+        slot_of_kf = np.full(smap.max_keyframes, -1, dtype=np.int32)
+        slot_of_kf[cams] = np.arange(len(cams), dtype=np.int32)
+
+        points = np.zeros((P, 3), dtype=F32)
+        point_valid = np.zeros(P, dtype=bool)
+        npts = len(pts)
+        points[:npts] = smap.pt_pos[pts]
+        point_valid[:npts] = True
+
+        obs = pack_observations(smap, pts, slot_of_kf, P, M,
+                                self.pyramid.inv_scales)
+
+        # relative-pose constraint slots between consecutive window KFs;
+        # the IMU chain fills them (ROADMAP.md queue A, step 13), until
+        # then every slot is invalid
+        R_slots = C
+        problem = BA.problem_to_device(
+            cam_pose, cam_fixed, cam_valid, points, point_valid,
+            obs["obs_cam"], obs["obs_uv"], obs["obs_right"],
+            obs["obs_weight"], obs["obs_valid"],
+            np.zeros(R_slots, dtype=np.int32),
+            np.zeros(R_slots, dtype=np.int32),
+            np.tile(np.eye(4, dtype=F32), (R_slots, 1, 1)),
+            np.zeros((R_slots, 6), dtype=F32),
+            np.zeros(R_slots, dtype=bool),
+            self.device,
+        )
+        # identity stamps for the guarded commit: the pipelined flush
+        # commits one cycle late and both pools recycle slots
+        aux = dict(cams=cams, pts=pts, n_window=len(window),
+                   cam_fids=smap.kf_frame_id[cams].copy(),
+                   pts_gen=smap.pt_alloc_gen[pts].copy(), **obs)
+        return problem, aux
+
+    # ------------------------------------------------------------------
+
+    def dispatch(self, kf: int, iterations: int = 3):
+        """Async half: snapshot + pack + queue the solve, no blocking.
+        Returns ([device tensors], ctx) or None."""
+        smap = self.map
+        with smap.lock:
+            if not smap.kf_valid[kf]:
+                return None
+            window, boundary, pts = self.select_window(kf)
+            if len(window) < 2 or len(pts) < 20:
+                return None
+            problem, aux = self.pack(window, boundary, pts)
+
+        cam_pose, points, _ = BA.solve_ba(problem, self.cam, self.bf,
+                                          iterations=iterations)
+        outliers = BA.classify_outliers(problem, self.cam, self.bf,
+                                        cam_pose, points)
+        return [cam_pose, points, outliers], aux
+
+    def commit(self, kf: int, fetched, aux):
+        """Guarded write-back, in the keyframe cycle one cycle after the
+        dispatch: the only mutations since pack were the cycles' own
+        triangulation / fusion commits, so per-element guards (identity
+        stamps, finiteness) decide what is written.  The whole-map drop of
+        the reference's synchronous ``run`` arrives with its caller, the
+        monocular initializer (ROADMAP.md queue A, step 12)."""
+        smap = self.map
+        cam_pose, points, outliers = fetched
+        with smap.lock:
+            cam_pose = cam_pose.astype(np.float64)
+            points = points.astype(np.float64)
+            win = aux["cams"][: aux["n_window"]]
+            # a degenerate window can diverge to NaN (solve_psd of a
+            # matrix that is not positive-definite): never commit a
+            # non-finite pose or point
+            cam_ok = np.isfinite(cam_pose[: len(win)]).all(axis=(1, 2))
+            win_arr = np.asarray(win)
+            # identity guard: skip slots culled or recycled since pack
+            cam_ok &= (smap.kf_valid[win_arr]
+                       & (smap.kf_frame_id[win_arr]
+                          == aux["cam_fids"][: len(win)]))
+            win_arr = win_arr[cam_ok]
+            smap.kf_pose[win_arr] = cam_pose[: len(win)][cam_ok]
+            pts_arr = np.asarray(aux["pts"])
+            live = smap.pt_valid[pts_arr]
+            live &= smap.pt_alloc_gen[pts_arr] == aux["pts_gen"]
+            pt_new = points[: len(pts_arr)]
+            live &= np.isfinite(pt_new).all(axis=1)
+            smap.pt_pos[pts_arr[live]] = pt_new[live]
+
+            erase_outlier_observations(
+                smap, aux["pts"], outliers, aux["obs_kf_id"],
+                aux["obs_feat"], aux["obs_valid"],
+            )
+            smap.state += 1
+            self.n_runs += 1

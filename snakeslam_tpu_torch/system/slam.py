@@ -1,8 +1,13 @@
 """SlamSystem: module construction, per-frame entry, trajectories, ATE.
 
-Counterpart of ``snakeslam_tpu/system/slam.py`` for the stereo / RGB-D
-tracking slice: the map, the tracker and the local mapper (synchronous
-keyframe half) on one ``device``.  Driven as
+Counterpart of ``snakeslam_tpu/system/slam.py`` for stereo / RGB-D input on
+one ``device``: the map, the tracker, the local mapper with its keyframe
+cycle (triangulation, neighbour fusion, local BA) and the keyframe-
+reduction back-ends behind delayed queues (simplification, delay 8; the
+deferred mapper, delay 9), built as the JAX package builds them.  The BoW
+vocabulary, keyframe database, loop closing and relocalization arrive with
+the system glue of ROADMAP.md queue A, step 9, and so do ``run`` and
+``finalize`` (global BA).  Driven as
 ``WindowedRunner(SlamSystem(settings, device), window).run(frames)``.
 """
 
@@ -17,6 +22,10 @@ from snakeslam_tpu_torch.core import lie
 from snakeslam_tpu_torch.core import trajectory as traj
 from snakeslam_tpu_torch.map.slam_map import FrameData, SlamMap
 from snakeslam_tpu_torch.mapping.local_mapping import LocalMapper
+from snakeslam_tpu_torch.optim.deferred_mapper import DeferredMapper
+from snakeslam_tpu_torch.optim.lba import LocalBA
+from snakeslam_tpu_torch.optim.simplification import Simplification
+from snakeslam_tpu_torch.system.queues import DelayedQueue
 from snakeslam_tpu_torch.system.settings import InputType, Settings
 from snakeslam_tpu_torch.system.stats import PerformanceStats
 from snakeslam_tpu_torch.tracking.tracker import Tracker
@@ -41,6 +50,18 @@ def _quat(R: np.ndarray) -> np.ndarray:
     return lie.rotmat_to_quat(torch.as_tensor(R)).numpy()
 
 
+class _QueueBackend:
+    """A local-mapper back-end that feeds a delayed queue: add the
+    keyframe, then advance the queue's horizon to it."""
+
+    def __init__(self, queue: DelayedQueue):
+        self.queue = queue
+
+    def add(self, kf: int):
+        self.queue.add(kf)
+        self.queue.update(kf)
+
+
 class SlamSystem:
     def __init__(self, settings: Settings, device):
         _check_settings(settings)
@@ -48,7 +69,24 @@ class SlamSystem:
         self.device = torch.device(device)
         self.map = SlamMap(settings.max_keyframes, settings.max_points,
                            settings.feature_slots)
-        self.local_mapper = LocalMapper(settings, self.map)
+        self.lba = LocalBA(settings, self.map, self.device)
+
+        # simplification + deferred mapping behind delayed queues
+        # (reference delays: simplification 8, deferred mapper 9)
+        self.simplification = Simplification(settings, self.map)
+        self.deferred_mapper = DeferredMapper(settings, self.map)
+        self._simp_queue = DelayedQueue(self.simplification.add, delay=8,
+                                        name="simplification")
+        self._deferred_queue = DelayedQueue(self.deferred_mapper.add, delay=9,
+                                            name="deferred")
+
+        self.local_mapper = LocalMapper(
+            settings, self.map, self.device, lba=self.lba,
+            backends=[_QueueBackend(self._simp_queue),
+                      _QueueBackend(self._deferred_queue)],
+        )
+        self.deferred_mapper.map_searcher = self.local_mapper.map_searcher
+        self.deferred_mapper.local_mapper = self.local_mapper
         self.tracker = Tracker(settings, self.map, self.device,
                                local_mapper=self.local_mapper)
         self.stats = PerformanceStats()

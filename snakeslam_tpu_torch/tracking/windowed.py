@@ -6,22 +6,29 @@ Counterpart of ``snakeslam_tpu/tracking/windowed.py`` in its inline
 chain their carry (pose / velocity / keyframe-decision state) on the
 device, so dispatching window k+1 never waits for window k.  Each window's
 packed frames go up from a pinned host buffer with a non-blocking copy;
-its results come back by non-blocking copies into pinned host tensors
-followed by a recorded CUDA event: ``ready()`` queries the event and
-``fetch()`` synchronizes on it before numpy reads the host tensors.  The
-keyframe decision runs in the loop against a carried virtual-keyframe
+its results come back by non-blocking copies into pinned host tensors,
+queued at dispatch behind the window's compute (``staging.HostCopy``).
+The keyframe decision runs in the loop against a carried virtual-keyframe
 state, so speculation stays valid across keyframes: the host inserts the
-real keyframe when it consumes the window that holds it, then swaps a
-refreshed local-map snapshot into later dispatches.
+real keyframe when it consumes the window that holds it, dispatches the
+keyframe cycle (triangulation, fusion, local BA) and, two window fetches
+later, commits it and swaps a refreshed local-map snapshot into later
+dispatches.
 
 Initialization, failures and recovery go through the per-frame Tracker
-path.  Deterministic: dispatch/consume order is a pure function of the
-input sequence.
+path.  Deterministic: windows are consumed one per blocking fetch, so the
+dispatch / consume / commit order is a pure function of the input
+sequence.  (The JAX package also consumes, in the same fetch, later
+windows whose copies have already landed: on its remote TPU that saved
+round trips, but the grouping then depends on timing.  A synchronous CPU
+run or a host-bound GPU run would find every window landed and insert all
+their keyframes before the first keyframe cycle; one window per fetch is
+the schedule the JAX package runs when the device is the slower side.)
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -34,6 +41,7 @@ from snakeslam_tpu_torch.models.window_step import (
     window_track,
 )
 from snakeslam_tpu_torch.system.settings import InputType
+from snakeslam_tpu_torch.tracking.staging import HostCopy
 from snakeslam_tpu_torch.tracking.tracker import TrackingState
 
 
@@ -45,35 +53,15 @@ class _InFlight:
     lm_ids: np.ndarray
     lm_gen: np.ndarray            # pt_alloc_gen of lm_ids at snapshot time
     staging: object = None        # pinned upload buffer, alive until done
-    host: tuple | None = field(default=None)
-    event: object = None
 
-    def start_copy(self):
-        """Queue the device->host copies behind the window's compute."""
-        if self.host is not None:
-            return
-        if self.results[0].device.type == "cuda":
-            self.host = tuple(
-                torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-                for a in self.results)
-            for h, a in zip(self.host, self.results):
-                h.copy_(a, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = self.results
-
-    def ready(self) -> bool:
-        """All result tensors have landed host-side."""
-        return self.host is not None and (self.event is None
-                                          or self.event.query())
+    def __post_init__(self):
+        # the device->host copies queue behind the window's compute
+        self.copy = HostCopy(self.results)
 
     def fetch(self):
-        self.start_copy()
-        if self.event is not None:
-            self.event.synchronize()
+        out = self.copy.wait()
         self.staging = None
-        return tuple(h.numpy() for h in self.host)
+        return out
 
 
 DEPTH = 4   # windows in flight
@@ -101,12 +89,12 @@ class WindowedRunner:
             prev, self._backend_token = self._backend_token, None
             self._backend_token = lm.dispatch_deferred(kf)
             if prev is not None:
-                lm.commit_deferred(prev)
+                lm.commit_deferred_checked(prev)
 
     def _commit_backend(self):
         tok, self._backend_token = self._backend_token, None
         if tok is not None:
-            self.tracker.local_mapper.commit_deferred(tok)
+            self.tracker.local_mapper.commit_deferred_checked(tok)
 
     # ------------------------------------------------------------------
 
@@ -252,8 +240,6 @@ class WindowedRunner:
                     frames, next_i, W, lm, lm_ids, lm_gen, carry, scal)
                 next_i += len(item.batch)
                 inflight.append(item)
-                # queue the D2H copy at dispatch time, behind the window
-                item.start_copy()
 
         top_up()
         consumed_to = i
@@ -261,13 +247,7 @@ class WindowedRunner:
         refresh_pending = False
         while inflight:
             item = inflight.pop(0)
-            for nxt in inflight:
-                nxt.start_copy()
-            group = [(item, item.fetch())]
-            # later windows whose copies have landed are consumed now
-            while inflight and inflight[0].ready():
-                nxt = inflight.pop(0)
-                group.append((nxt, nxt.fetch()))
+            outs, assign, vis, fnd = item.fetch()
 
             def do_refresh():
                 """Commit the pending cycle + swap the refreshed snapshot."""
@@ -293,20 +273,13 @@ class WindowedRunner:
                 # deterministic commit point: two blocking window fetches
                 # after the cycle's dispatch
                 do_refresh()
-            got_kf = None
-            for it, (outs, assign, vis, fnd) in group:
-                r = self._consume(it, outs, assign, vis, fnd)
-                if r is not None and r is not True and r < 0:
-                    got_kf = r
-                    break
-                consumed_to = it.start + len(it.batch)
-                if r:
-                    got_kf = True
-            if got_kf is not None and got_kf is not True and got_kf < 0:
-                failed_at = -(got_kf + 1)
+            r = self._consume(item, outs, assign, vis, fnd)
+            if r is not None and r is not True and r < 0:
+                failed_at = -(r + 1)
                 inflight.clear()
                 break
-            if got_kf:
+            consumed_to = item.start + len(item.batch)
+            if r:
                 self._dispatch_backend_cycles()
                 refresh_in = 2
                 refresh_pending = True

@@ -9,6 +9,11 @@ Pose kernel tolerances are those of tests/test_pose_pallas.py: pose atol
 kernel's fixed-order block reduction sums in another f32 order than torch.
 The FAST kernel sums in its plain version's order and the patch gather only
 copies, so both are held bit-identical.
+
+The keyframe back-end's ops (plain torch, no hand kernel) run on the card
+without a host sync (``torch.cuda.set_sync_debug_mode("error")``): the
+local BA's solve is bit-identical on a rerun and within 1e-4 of the CPU;
+pair triangulation's integer outputs equal the CPU's.
 """
 
 import numpy as np
@@ -121,6 +126,7 @@ def test_windowed_slice_goes_through_the_kernel(cuda_device):
     assert cpu_launches == 0
     assert len(gpu.tracker.trajectory) == len(cpu.tracker.trajectory) == 48
     assert gpu.map.n_keyframes == cpu.map.n_keyframes
+    assert gpu.lba.n_runs == cpu.lba.n_runs > 0
     ate_g = gpu.ate_against_gt(with_scale=False)[0]
     ate_c = cpu.ate_against_gt(with_scale=False)[0]
     assert abs(ate_g - ate_c) <= 0.1 * ate_c, (ate_g, ate_c)
@@ -213,6 +219,12 @@ def test_pixels_run_goes_through_the_fast_kernel(cuda_device):
         s.local_map_slots = 2048
         s.th_depth = 20.0
         system = SlamSystem(s, device)
+        # the pixels lane keeps its reduced back-end (chip_smoke.py)
+        lm = system.local_mapper
+        lm.lba = None
+        lm.map_searcher = None
+        lm.backends = []
+        lm._tri_dispatch = lambda *a, **k: None
         seq = PixelFrameSequence(s, L, R, ts, gt, chunk=16, device=device)
         fast = OK.FAST_LAUNCHES
         WindowedRunner(system, window=16).run(seq)
@@ -228,3 +240,56 @@ def test_pixels_run_goes_through_the_fast_kernel(cuda_device):
     ate_g = gpu.ate_against_gt(with_scale=False)[0]
     ate_c = cpu.ate_against_gt(with_scale=False)[0]
     assert abs(ate_g - ate_c) <= 0.2 * ate_c, (ate_g, ate_c)
+
+
+def test_solve_ba_on_the_card(cuda_device):
+    """An LBA-shaped problem (C = 32, P = 2048, M = 8): no host sync inside
+    the solve, a bit-identical rerun, poses and points within 1e-4 of the
+    CPU solve."""
+    from snakeslam_tpu_torch.ops import ba as BA
+    from snakeslam_tpu_torch.utils.backend_problems import ba_problem
+
+    prob, cam, bf = ba_problem(32, 2048, 8, 0, cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = BA.solve_ba(prob, cam, bf, iterations=3)
+        out_mask = BA.classify_outliers(prob, cam, bf, out[0], out[1])
+        again = BA.solve_ba(prob, cam, bf, iterations=3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b), "rerun not bit-identical"
+    cprob, ccam, cbf = ba_problem(32, 2048, 8, 0, "cpu")
+    ref = BA.solve_ba(cprob, ccam, cbf, iterations=3)
+    np.testing.assert_allclose(out[0].cpu().numpy(), ref[0].numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(out[1].cpu().numpy(), ref[1].numpy(),
+                               atol=1e-4)
+    ref_mask = BA.classify_outliers(cprob, ccam, cbf, ref[0], ref[1])
+    assert (out_mask.cpu() == ref_mask).float().mean().item() >= 0.995
+
+
+def test_triangulate_pairs_on_the_card(cuda_device):
+    """Keyframe a against 10 neighbours at 1024 slots: no host sync, the
+    integer outputs identical to the CPU's, points within 1e-4 of their
+    norm on >= 99% of valid rows."""
+    from snakeslam_tpu_torch.ops.triangulate_pairs import (
+        triangulate_pairs_batch)
+    from snakeslam_tpu_torch.utils.backend_problems import pair_problem
+
+    kw = pair_problem(1024, 10, 1, cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = triangulate_pairs_batch(**kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ref = triangulate_pairs_batch(**pair_problem(1024, 10, 1, "cpu"))
+    for k in ("valid", "match_b", "far_away", "n_new"):
+        assert torch.equal(out[k].cpu(), ref[k]), k
+    v = ref["valid"]
+    assert int(v.sum()) > 1000
+    err = (out["point"].cpu()[v] - ref["point"][v]).norm(dim=-1)
+    close = err <= 1e-4 * ref["point"][v].norm(dim=-1)
+    assert close.float().mean().item() >= 0.99

@@ -1,0 +1,322 @@
+"""Keyframe feature pool, neighbour fusion and the triangulation dispatch:
+the port against the JAX package on the same map.
+
+The map comes from a short dense run of the JAX package (the
+configuration of tests/test_torch_slice.py, 16 frames, its back-end
+reduced to the keyframes' synchronous half so duplicates are left to
+fuse) and is copied into the port's map.  Both packages then run
+``MapSearcher.dispatch`` / ``commit``, the single-keyframe fuse,
+``LocalMapper._tri_dispatch`` / ``_tri_commit`` and one whole keyframe
+cycle (``dispatch_deferred`` / ``commit_deferred_checked``) on it.
+Tolerances: the fusion searches' ``feat_point`` identical, fused counts
+identical, the maps' observation tables identical after the commits;
+triangulation ``valid`` / ``match_b`` identical, points within 1e-4 of
+their norm of the JAX package's, or, on DLT rows, of the float64 DLT (see
+``_point_mismatches``); stereo-parallax arbitration flips on at most 1% of
+valid rows; after the whole cycle, poses within 1e-4 and points as stated
+in its test.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from snakeslam_tpu.map import kf_pool as JPOOL
+from snakeslam_tpu.map.slam_map import FrameData as JFrame
+from snakeslam_tpu.map.slam_map import SlamMap as JMap
+from snakeslam_tpu_torch.map import kf_pool as TPOOL
+from snakeslam_tpu_torch.map.slam_map import FrameData as TFrame
+from snakeslam_tpu_torch.map.slam_map import SlamMap as TMap
+from snakeslam_tpu_torch.tracking.staging import kf_features_cached
+
+N_FRAMES = 16
+
+
+def _frame(cls, frame_id, n=12):
+    rng = np.random.default_rng(100 + frame_id)
+    return cls(
+        frame_id=frame_id, timestamp=0.1 * frame_id,
+        uv=rng.uniform(0, 100, (n, 2)), octave=rng.integers(0, 3, n),
+        angle=rng.uniform(0, 360, n).astype(np.float32),
+        descriptors=rng.integers(0, 256, (n, 32), dtype=np.uint8),
+        right=rng.uniform(-1, 50, n), depth=np.full(n, -1.0),
+        pose_cw=np.eye(4))
+
+
+def test_pool_lru_eviction_and_erase_hook_match_jax():
+    """Capacity 2: a third keyframe evicts the least recently used row;
+    erasing a keyframe frees its row through the map's erase hook.  Slot
+    choices equal the JAX pool's; rows hold the keyframes' features."""
+    jmap, tmap = JMap(8, 64, 16), TMap(8, 64, 16)
+    for k in range(4):
+        jmap.allocate_keyframe(_frame(JFrame, k))
+        tmap.allocate_keyframe(_frame(TFrame, k))
+    jp = JPOOL.KFFeaturePool(jmap, 16, capacity=2)
+    tp = TPOOL.KFFeaturePool(tmap, 16, "cpu", capacity=2)
+    for kfs in ([0], [1], [0], [2], [1, 2]):
+        np.testing.assert_array_equal(tp.slots_for(kfs), jp.slots_for(kfs))
+    assert set(tp._slot_of) == {1, 2}          # 0 was least recently used
+    tmap.erase_keyframe(1)
+    jmap.erase_keyframe(1)
+    assert set(tp._slot_of) == {2}
+    np.testing.assert_array_equal(tp.slots_for([3]), jp.slots_for([3]))
+    assert set(tp._slot_of) == {2, 3}
+    for kf in (2, 3):
+        slot = int(tp.slots_for([kf])[0])
+        tf = TPOOL.pool_features(tp.arrays, slot)
+        jf = JPOOL.pool_features(jp.arrays, int(jp.slots_for([kf])[0]))
+        for name in tf._fields:
+            np.testing.assert_array_equal(tf._asdict()[name].numpy(),
+                                          np.asarray(jf._asdict()[name]),
+                                          err_msg=name)
+        cached = kf_features_cached(tmap, kf, 16, "cpu")
+        for name in tf._fields:
+            np.testing.assert_array_equal(cached._asdict()[name].numpy(),
+                                          tf._asdict()[name].numpy())
+
+
+# ---------------------------------------------------------------------------
+# the same map in both packages
+# ---------------------------------------------------------------------------
+
+def _jax_map_and_settings():
+    from snakeslam_tpu.frontend.synthetic_source import (
+        apply_world_to_settings, synthetic_frames)
+    from snakeslam_tpu.system.settings import InputType, Settings
+    from snakeslam_tpu.system.slam import SlamSystem
+    from snakeslam_tpu.tracking.windowed import WindowedRunner
+    from snakeslam_tpu.utils.synthetic import SyntheticWorld, orbit_trajectory
+
+    world = SyntheticWorld(n_points=1500, seed=7)
+    s = Settings()
+    s.input_type = InputType.Stereo
+    s.enable_imu = False
+    s.feature_slots = 512
+    s.local_map_slots = 1024
+    s.th_depth = 25.0
+    apply_world_to_settings(world, s)
+    system = SlamSystem(s)
+    lm = system.local_mapper
+    lm.lba = None
+    lm.map_searcher = None
+    lm.backends = []
+    lm._tri_dispatch = lambda *a, **k: None
+    frames = list(synthetic_frames(
+        world, orbit_trajectory(N_FRAMES, radius=7.0,
+                                arc=1.2 * N_FRAMES / 400.0, fps=200.0),
+        s, noise_px=0.3))
+    for f in frames:
+        f.timestamp = f.frame_id / 10.0
+    from test_torch_slice import jax_one_window_per_fetch
+
+    with jax_one_window_per_fetch():
+        WindowedRunner(system, window=8).run(frames)
+    return system.map, s
+
+
+def _port_settings(js):
+    from snakeslam_tpu_torch.system.settings import Settings
+
+    ts = Settings()
+    for k, v in vars(js).items():
+        setattr(ts, k, v)
+    return ts
+
+
+def _copy_map(jmap, cls):
+    """The JAX run's map state (numpy arrays, counters, free lists) in a
+    new map of class ``cls``."""
+    tmap = cls(jmap.max_keyframes, jmap.max_points, jmap.max_features)
+    for k, v in vars(jmap).items():
+        if isinstance(v, np.ndarray):
+            setattr(tmap, k, v.copy())
+        elif k in ("_next_kf", "_next_pt", "state"):
+            setattr(tmap, k, v)
+        elif k in ("_free_pts", "_free_kfs"):
+            setattr(tmap, k, list(v))
+    return tmap
+
+
+@pytest.fixture(scope="module")
+def maps():
+    jmap, js = _jax_map_and_settings()
+    return jmap, js
+
+
+def _fresh(maps):
+    """A copy of the JAX map for each package (commits mutate them)."""
+    jmap, js = maps
+    return (_copy_map(jmap, JMap), _copy_map(jmap, TMap), js,
+            _port_settings(js))
+
+
+def _assert_maps_equal(jm, tm):
+    for name in ("kf_obs", "pt_valid", "pt_obs_kf", "pt_obs_feat", "pt_n_obs",
+                 "pt_pos"):
+        np.testing.assert_array_equal(getattr(tm, name), getattr(jm, name),
+                                      err_msg=name)
+
+
+def test_map_searcher_matches_jax(maps):
+    from snakeslam_tpu.mapping.fusion import MapSearcher as JMS
+    from snakeslam_tpu.utils.fetch import fetch_list
+    from snakeslam_tpu_torch.mapping.fusion import MapSearcher as TMS
+    from snakeslam_tpu_torch.tracking.staging import HostCopy
+
+    jm, tm, js, ts = _fresh(maps)
+    assert jm.n_keyframes >= 3
+    jms, tms = JMS(js, jm), TMS(ts, tm, "cpu")
+    total = 0
+    for kf in [int(k) for k in jm.valid_keyframes()][-3:]:
+        jd, td = jms.dispatch(kf), tms.dispatch(kf)
+        assert (jd is None) == (td is None)
+        if jd is None:
+            continue
+        jf, tf = fetch_list(jd[0]), HostCopy(td[0]).wait()
+        assert len(jf) == len(tf)
+        for a, b in zip(jf, tf):
+            np.testing.assert_array_equal(b, a)
+        assert td[1]["neighbors"] == jd[1]["neighbors"]
+        nj = jms.commit(kf, jf, jd[1])
+        nt = tms.commit(kf, tf, td[1])
+        assert nt == nj
+        total += nt
+        _assert_maps_equal(jm, tm)
+    assert total > 0
+
+
+def _dlt64(Ta, Tb, xa, xb):
+    """Exact least-squares DLT (w = 1) of one match in float64."""
+    rows = np.stack([xa[0] * Ta[2] - Ta[0], xa[1] * Ta[2] - Ta[1],
+                     xb[0] * Tb[2] - Tb[0], xb[1] * Tb[2] - Tb[1]])
+    return np.linalg.lstsq(rows[:, :3], -rows[:, 3], rcond=None)[0]
+
+
+def _point_mismatches(jm, js, kf, neighbors, valid, match_b, jp, tp) -> int:
+    """Valid rows whose points differ by more than 1e-4 of their norm,
+    except DLT rows where the port is within 1e-4 of the float64 DLT: at
+    neighbouring keyframes' ~1 degree parallax the JAX package's f32
+    normal equations are good to ~2e-4 only (the port solves them in
+    float64, ops/triangulation.py).  What is left are rows where the
+    stereo-parallax arbitration chose another method in the two packages
+    (cosines equal to the last f32 bits): their count is returned."""
+    Ta = jm.kf_pose[kf].astype(np.float32).astype(np.float64)
+    c = np.array([js.cx, js.cy])
+    f = np.array([js.fx, js.fy])
+    flips = 0
+    for bi, nb in enumerate(int(n) for n in neighbors):
+        Tb = jm.kf_pose[nb].astype(np.float32).astype(np.float64)
+        for i in np.nonzero(valid[bi])[0]:
+            tol = 1e-4 * np.linalg.norm(jp[bi, i])
+            if np.linalg.norm(tp[bi, i] - jp[bi, i]) <= tol:
+                continue
+            xa = (jm.kf_feat_uv[kf, i].astype(np.float32) - c) / f
+            xb = (jm.kf_feat_uv[nb, match_b[bi, i]].astype(np.float32)
+                  - c) / f
+            if np.linalg.norm(tp[bi, i] - _dlt64(Ta, Tb, xa, xb)) <= tol:
+                continue
+            flips += 1
+    return flips
+
+
+def test_tri_dispatch_matches_jax(maps):
+    from snakeslam_tpu.mapping.local_mapping import LocalMapper as JLM
+    from snakeslam_tpu.utils.fetch import fetch_list
+    from snakeslam_tpu_torch.mapping.local_mapping import LocalMapper as TLM
+    from snakeslam_tpu_torch.tracking.staging import HostCopy
+
+    jm, tm, js, ts = _fresh(maps)
+    # free a third of the newest keyframe's features (the same erases in
+    # both maps): replayed stereo features are almost all matched, and
+    # triangulation only works on free ones
+    last = int(jm.valid_keyframes()[-1])
+    for p in jm.keyframe_points(last)[::3]:
+        jm.erase_point(int(p))
+        tm.erase_point(int(p))
+    jlm, tlm = JLM(js, jm), TLM(ts, tm, "cpu")
+    made = n_rows = n_flips = 0
+    for kf in [int(k) for k in jm.valid_keyframes()][-3:]:
+        jd, td = jlm._tri_dispatch(kf), tlm._tri_dispatch(kf)
+        assert (jd is None) == (td is None)
+        if jd is None:
+            continue
+        jv, jmb, jp = fetch_list([jd[0]["valid"], jd[0]["match_b"],
+                                  jd[0]["point"]])
+        tv, tmb, tp = HostCopy([td[0]["valid"], td[0]["match_b"],
+                                td[0]["point"]]).wait()
+        np.testing.assert_array_equal(tv, jv)
+        np.testing.assert_array_equal(tmb, jmb)
+        n_rows += int(jv.sum())
+        n_flips += _point_mismatches(jm, js, kf, jd[1]["neighbors"], jv, jmb,
+                                     jp, tp)
+        nj = jlm._tri_commit(kf, jv, jmb, jp.astype(np.float64), jd[1])
+        nt = tlm._tri_commit(kf, tv, tmb, tp.astype(np.float64), td[1])
+        assert nt == nj
+        made += nt
+        np.testing.assert_array_equal(tm.kf_obs, jm.kf_obs)
+        np.testing.assert_array_equal(tm.pt_valid, jm.pt_valid)
+    assert made > 0
+    assert n_flips <= 0.01 * n_rows, (n_flips, n_rows)
+
+
+def test_fuse_points_into_kf_matches_jax(maps):
+    """The single-keyframe fuse (the staged keyframe features of
+    ``kf_features_cached``, the wide window ``th=4.0`` of the post-loop
+    SearchAndFuse): the older keyframes' points into the newest keyframe,
+    fused counts and the maps' observation tables identical."""
+    from snakeslam_tpu.mapping.fusion import MapSearcher as JMS
+    from snakeslam_tpu_torch.mapping.fusion import MapSearcher as TMS
+
+    jm, tm, js, ts = _fresh(maps)
+    jms, tms = JMS(js, jm), TMS(ts, tm, "cpu")
+    kfs = [int(k) for k in jm.valid_keyframes()]
+    pts = np.unique(np.concatenate([jm.keyframe_points(k) for k in kfs[:-1]]))
+    pts = pts[jm.pt_valid[pts]]
+    nj = jms._fuse_points_into_kf(pts, kfs[-1], th=4.0)
+    nt = tms._fuse_points_into_kf(pts, kfs[-1], th=4.0)
+    assert nt == nj > 0
+    _assert_maps_equal(jm, tm)
+
+
+def test_keyframe_cycle_matches_jax(maps):
+    """One whole deferred cycle on the newest keyframe (a third of its
+    features freed, as in test_tri_dispatch_matches_jax): triangulation,
+    fusion and the local BA dispatched, then committed.  On the CPU the
+    port's cycle has landed as soon as it is dispatched (``deferred_ready``).
+    The maps' observation tables and point sets identical after the
+    commit; keyframe poses within 1e-4; the positions of the points that
+    existed before the cycle within 1e-4 of their norm, of the points it
+    triangulated within 5e-3."""
+    from snakeslam_tpu.mapping.local_mapping import LocalMapper as JLM
+    from snakeslam_tpu.optim.lba import LocalBA as JLBA
+    from snakeslam_tpu_torch.mapping.local_mapping import LocalMapper as TLM
+    from snakeslam_tpu_torch.optim.lba import LocalBA as TLBA
+
+    jm, tm, js, ts = _fresh(maps)
+    last = int(jm.valid_keyframes()[-1])
+    for p in jm.keyframe_points(last)[::3]:
+        jm.erase_point(int(p))
+        tm.erase_point(int(p))
+    jlm = JLM(js, jm, lba=JLBA(js, jm))
+    tlm = TLM(ts, tm, "cpu", lba=TLBA(ts, tm, "cpu"))
+    jtok, ttok = jlm.dispatch_deferred(last), tlm.dispatch_deferred(last)
+    assert ttok["tri"] is not None and ttok["ba"] is not None
+    assert tlm.deferred_ready(ttok)
+    jlm.commit_deferred_checked(jtok)
+    tlm.commit_deferred_checked(ttok)
+    assert tlm.n_triangulated > 0 and tlm.lba.n_runs == 1
+    for name in ("kf_obs", "pt_valid", "pt_obs_kf", "pt_obs_feat", "pt_n_obs"):
+        np.testing.assert_array_equal(getattr(tm, name), getattr(jm, name),
+                                      err_msg=name)
+    kfs = jm.valid_keyframes()
+    np.testing.assert_allclose(tm.kf_pose[kfs], jm.kf_pose[kfs], atol=1e-4)
+    pts = np.nonzero(jm.pt_valid)[0]
+    err = np.linalg.norm(tm.pt_pos[pts] - jm.pt_pos[pts], axis=1)
+    rel = err / np.linalg.norm(jm.pt_pos[pts], axis=1)
+    # the cycle's triangulated points start from the JAX package's f32 DLT,
+    # up to centimetres off at ~1 degree parallax (ROADMAP.md queue C);
+    # 3 LM iterations leave up to ~2.3e-3 of their norm of that here
+    new = np.isin(pts, [p for p, _ in tlm.recent_points])
+    assert new.any()
+    assert (rel[~new] <= 1e-4).all(), rel[~new].max()
+    assert (rel[new] <= 5e-3).all(), rel[new].max()

@@ -47,3 +47,34 @@ def test_device_mirror_refreshes_after_clear():
                                   [-20.0, -19.0, -18.0])
     assert smap.state > state_before + 1, "clear() must not restart the counter"
     assert smap.n_keyframes == 1 and smap.n_points == 3
+
+
+def test_kf_feature_pool_and_cache_do_not_outlive_clear():
+    """The keyframe feature pool and the staged keyframe features are keyed
+    on keyframe ids, which restart at 0 after clear(): the new map's
+    keyframe 0 must get its own features, and erasing it must still free
+    its pool row (the JAX package keeps the old map's row and loses the
+    erase hook)."""
+    from snakeslam_tpu_torch.map.kf_pool import pool_features
+    from snakeslam_tpu_torch.tracking.staging import kf_features_cached
+
+    smap = SlamMap(max_keyframes=8, max_points=64, max_features=16)
+    assert smap.allocate_keyframe(_frame(0)) == 0
+    pool = smap.kf_feature_pool(16, "cpu")
+    pool.slots_for([0])
+    kf_features_cached(smap, 0, 16, "cpu")
+
+    smap.clear()
+    new = _frame(7)
+    assert smap.allocate_keyframe(new) == 0
+    pool = smap.kf_feature_pool(16, "cpu")
+    feats = pool_features(pool.arrays, int(pool.slots_for([0])[0]))
+    cached = kf_features_cached(smap, 0, 16, "cpu")
+    for f in (feats, cached):
+        np.testing.assert_array_equal(f.uv[:4].numpy(),
+                                      new.uv.astype(np.float32))
+        np.testing.assert_array_equal(
+            np.packbits(f.desc_bits[:4].numpy().astype(np.uint8), axis=-1,
+                        bitorder="little"), new.descriptors)
+    smap.erase_keyframe(0)
+    assert 0 not in pool._slot_of

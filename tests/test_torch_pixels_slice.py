@@ -4,8 +4,10 @@ Both packages run tests/test_pixels_frontend.py's
 ``test_pixel_sequence_windowed_tracks`` configuration (900-point rendered
 world, seed 3, 320x240, 48 frames, 600 features on 4 levels, chunk 16,
 window 16) through ``PixelFrameSequence`` and ``WindowedRunner`` on the CPU,
-the JAX package in the port's back-end configuration (no triangulation,
-fusion, local BA or loop / simplification / deferred-mapper back-ends).
+both with the keyframe back-end reduced to its synchronous half (no
+triangulation, fusion, local BA or loop / simplification / deferred-mapper
+back-ends), and the JAX package's runner pinned to the port's
+one-window-per-fetch schedule (see tests/test_torch_slice.py).
 
 Tolerances: tracked counts equal, keyframes within 1, ATE within 20% of the
 JAX run (the front-ends differ in a few descriptor bits,
@@ -15,6 +17,7 @@ tests/test_torch_pixels.py, which moves individual matches).
 import pytest
 
 from test_torch_pixels import _render, _settings, _world
+from test_torch_slice import jax_one_window_per_fetch
 
 N_FRAMES, CHUNK, WINDOW = 48, 16, 16
 
@@ -65,11 +68,17 @@ def slice_runs():
     lm.map_searcher = None
     lm.backends = []
     lm._tri_dispatch = lambda *a, **k: None
-    JRun(jax_sys, window=WINDOW, two_stage=True).run(
-        JSeq(s, L, R, ts, gt, chunk=CHUNK))
+    with jax_one_window_per_fetch():
+        JRun(jax_sys, window=WINDOW, two_stage=True).run(
+            JSeq(s, L, R, ts, gt, chunk=CHUNK))
 
     s = _slice_settings(Settings, InputType)
     port_sys = SlamSystem(s, "cpu")
+    lm = port_sys.local_mapper
+    lm.lba = None
+    lm.map_searcher = None
+    lm.backends = []
+    lm._tri_dispatch = lambda *a, **k: None
     seq = PixelFrameSequence(s, L, R, ts, gt, chunk=CHUNK, device="cpu")
     launches = orb_kernels.FAST_LAUNCHES
     WindowedRunner(port_sys, window=WINDOW).run(seq)
