@@ -11,13 +11,23 @@ exits non-zero:
      source, all started together;
   3. kernel: the CUDA pose kernel against its plain PyTorch version on the
      card at N = 512 and 1024, stereo and mono, bit-identical on a rerun,
-     and timed (median of per-call CUDA-event times after a warm-up);
+     and timed two ways: ``call_us``, the median CUDA-event interval around
+     one wrapper call (host-bound: it holds the wrapper's Python), and
+     ``device_us``, the device time per launch from replaying a CUDA graph
+     of captured wrapper calls; ``bound_us`` beside them; at N = 1024
+     stereo a breakdown: device time by cluster width (4, 8, 16 CTAs) and
+     by iteration schedule (0 x 0 to 3 x 3), a graph's per-launch floor
+     (a 1-element add), and the wrapper's host time per call beside that
+     of its output allocation and of its C call alone;
   4. render: the pixels lane's 160 stereo pairs, once, on the host;
   5. fast kernel: FAST-16 against its plain version on 64 rendered 480x752
      views, the same views at pyramid levels 1-3 and an odd 3x101x157
-     batch: bit-identical, reruns bit-identical, timed;
+     batch: bit-identical, reruns bit-identical, timed (call and graph
+     device time) beside each level's ``bound_us``;
   6. patch gather: against slicing at tests/test_orb.py's shapes and at
-     64 x 480 x 752 with 1000 blocks of 56x256 per image: exact, timed;
+     64 x 480 x 752 with 1000 blocks of 56x256 per image: exact, timed
+     beside ``bound_us`` and ``library_us``, one advanced-indexing call
+     computing the same blocks (a yardstick the port never calls);
   7. slice: the smooth stereo lane at full width (6000-point world, seed 7,
      400 frames, 1024 feature slots, 2048 pinned local-map slots, window
      128, two-stage) with the full keyframe back-end (triangulation,
@@ -46,7 +56,12 @@ exits non-zero:
      to the CPU's; timed.
 
 The line before the last is one JSON object with the kernels' names,
-routes, launch counts, errors and times; the last line is the result.
+routes, launch counts, errors, times (``ms`` per call, ``device_ms`` per
+launch), roofline bounds (``bound_ms``, ``bound_by``: inputs read once and
+outputs written once at 3.35 TB/s, operations at 67 TFLOP/s f32, the H100
+SXM's published peaks) and library-call times (``library_ms``, null where
+no single PyTorch call computes the same function); the last line is the
+result.
 Imports only the port, numpy and torch.
 """
 
@@ -84,6 +99,23 @@ from snakeslam_tpu_torch.utils.synthetic import SyntheticWorld, orbit_trajectory
 
 POSE_ATOL = 2e-4          # tests/test_pose_pallas.py tolerances
 TIMED_CALLS = 100
+GRAPH_LAUNCHES = 100      # launches captured per CUDA graph for device time
+# the H100 SXM's published peaks: HBM bytes/s
+# and f32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations of the pose refine, counted from its plain version: per
+# feature and GN step the residual (~37), Huber weight (5), Jacobian rows
+# (~47) and the 27 weighted normal-equation terms (189); per feature and
+# chi2 reclassification the residual alone
+POSE_OPS_PER_FEATURE_STEP = 278
+POSE_OPS_PER_FEATURE_RECLASS = 38
+# f32 operations of FAST per pixel: the compass test of the four ring
+# pixels 0, 4, 8, 12 (2 threshold adds, 8 compares) for every pixel; the
+# full 16-pixel test (2 compares, 3 subtractions and 2 adds per ring pixel,
+# the max) for the pixels that pass it; the bit-mask logic is not f32
+FAST_OPS_COMPASS = 10
+FAST_OPS_FULL = 16 * 7 + 1
 PIXELS_FRAMES, PIXELS_CHUNK = 160, 32
 # the JAX package's run of the pixels lane on the CPU, in the port's
 # back-end configuration (PERF.md): the pixels lane is gated against it
@@ -111,6 +143,45 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time in ms the card could take: the larger of ``nbytes``
+    at the HBM rate and ``ops`` at the f32 rate, and which one it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def graph_us(fn, k: int = GRAPH_LAUNCHES, reps: int = 10) -> float:
+    """Device time per launch in microseconds: ``k`` calls of ``fn``
+    captured in one CUDA graph, the graph replayed ``reps`` times between
+    two CUDA events; the median replay over ``k``.  Host time is out of
+    the interval, the kernels run back to back."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(k):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) * 1e3 / k)
+    del graph
+    return statistics.median(times)
+
+
 def time_calls_us(fn, n: int = TIMED_CALLS, warmup: int = 10) -> float:
     """Median per-call device time in microseconds over ``n`` calls."""
     for _ in range(warmup):
@@ -125,6 +196,81 @@ def time_calls_us(fn, n: int = TIMED_CALLS, warmup: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) * 1e3)
     return statistics.median(times)
+
+
+def pose_bound(n: int, outer: int, inner: int) -> tuple[float, str]:
+    """The pose refine's roofline bound for one problem of ``n`` features:
+    T_init, points, uv, right, weight, mask and the five camera scalars
+    read once, the pose, inlier flags and count written once."""
+    nbytes = 64 + n * (12 + 8 + 4 + 4 + 1) + 5 * 4 + 64 + n + 4
+    ops = n * (POSE_OPS_PER_FEATURE_STEP * outer * inner
+               + POSE_OPS_PER_FEATURE_RECLASS * outer)
+    return bound(nbytes, ops)
+
+
+def host_us(fn, n: int = 200, runs: int = 5) -> float:
+    """Host time per call in microseconds: the median over ``runs`` of
+    ``n`` back-to-back calls (the device keeps up, so the host sets the
+    pace)."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def pose_entry_call(args, kw, cluster: int = 0):
+    """A function that launches the pose kernel through its C entry point
+    alone, on ``args`` (one problem) into outputs made here, spread over
+    ``cluster`` CTAs (0: the width the kernel derives)."""
+    T0, pts, uv, right, weight, mask, cam, bf = args
+    dev, N = pts.device, pts.shape[0]
+    outs = (torch.empty((4, 4), device=dev),
+            torch.empty((N,), dtype=torch.bool, device=dev),
+            torch.empty((), dtype=torch.int32, device=dev))
+    ptrs = [t.data_ptr() for t in (T0, pts, uv, right, weight, mask, *cam,
+                                   bf)]
+    out_ptrs = [t.data_ptr() for t in outs]
+    entry = PF._entry or PF._load_entry()
+
+    def call():
+        err = entry(*ptrs, 2.1 ** 2, 2.3 ** 2, 1e-5, kw["outer_iters"],
+                    kw["inner_iters"], 1, N, cluster, *out_ptrs,
+                    cuda_build.raw_stream(pts))
+        check(err == 0, f"pose kernel launch failed ({err}) at C={cluster}")
+        return outs
+    return call
+
+
+def pose_host_us(args, kw) -> dict:
+    """The pose wrapper's host time per call and that of its parts: its
+    one output allocation cut into views of three dtypes, three separate
+    allocations in its place, and the ctypes call into the kernel's C
+    entry point alone."""
+    T0, pts, uv, right, weight, mask, cam, bf = args
+    dev, N = pts.device, pts.shape[0]
+    f32 = torch.float32
+
+    def three():
+        return (torch.empty((4, 4), dtype=f32, device=dev),
+                torch.empty((N,), dtype=torch.bool, device=dev),
+                torch.empty((), dtype=torch.int32, device=dev))
+
+    def one():
+        T_b, n_b, inl_b = torch.empty(68 + N, dtype=torch.uint8,
+                                      device=dev).split((64, 4, N))
+        return (T_b.view(f32).view((4, 4)), n_b.view(torch.int32).view(()),
+                inl_b.view(torch.bool).view((N,)))
+
+    return dict(
+        call=host_us(lambda: PF.pose_refine_fused(*args, **kw)),
+        outputs_three_allocations=host_us(three),
+        outputs_one_allocation_views=host_us(one),
+        c_entry_call=host_us(pose_entry_call(args, kw)))
 
 
 def kernel_phase(dev) -> dict:
@@ -155,13 +301,38 @@ def kernel_phase(dev) -> dict:
                 check(np.linalg.norm(T.cpu().numpy()[:3, 3] - T_gt[:3, 3])
                       < 2e-3, f"kernel missed the ground truth at N={n}")
             kw = dict(outer_iters=2, inner_iters=2)
-            us = time_calls_us(lambda: PF.pose_refine_fused(*args, **kw))
+            call_us = time_calls_us(lambda: PF.pose_refine_fused(*args, **kw))
+            device_us = graph_us(lambda: PF.pose_refine_fused(*args, **kw))
             us_plain = time_calls_us(
                 lambda: PF.pose_refine_fused_reference(*batched, **kw))
-            phase("kernel", n=n, stereo=stereo, max_abs_err=worst,
-                  kernel_us=us, plain_us=us_plain)
+            b_ms, b_by = pose_bound(n, 2, 2)
+            phase("kernel", n=n, stereo=stereo, iters=[2, 2],
+                  max_abs_err=worst, call_us=call_us, device_us=device_us,
+                  plain_us=us_plain, bound_us=b_ms * 1e3, bound_by=b_by)
             if n == 1024 and stereo:
-                timing = dict(ms=us / 1e3, plain_ms=us_plain / 1e3)
+                # the cluster width (CTAs a problem is spread over; the
+                # kernel derives 8 at N = 1024), through the C entry point
+                sweep = {c: graph_us(pose_entry_call(args, kw, c))
+                         for c in (4, 8, 16)}
+                # where the device time goes: per schedule (outer x inner;
+                # 0 x 0 is load, Gram-Schmidt and count alone), beside the
+                # per-launch floor of a graph (a 1-element add)
+                by_iters = {}
+                for o_i in ((0, 0), (1, 0), (1, 1), (1, 2), (1, 3), (2, 2),
+                            (3, 3)):
+                    kwi = dict(outer_iters=o_i[0], inner_iters=o_i[1])
+                    by_iters["x".join(map(str, o_i))] = graph_us(
+                        lambda: PF.pose_refine_fused(*args, **kwi))
+                one = torch.zeros(1, device=dev)
+                floor_us = graph_us(lambda: one.add_(1.0))
+                phase("kernel_breakdown", n=n, stereo=stereo,
+                      device_us_by_cluster=sweep,
+                      device_us_by_iters=by_iters,
+                      graph_floor_us=floor_us,
+                      host_us=pose_host_us(args, kw))
+                timing = dict(ms=call_us / 1e3, device_ms=device_us / 1e3,
+                              plain_ms=us_plain / 1e3, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=None)
     return dict(max_abs_err=worst, **timing)
 
 
@@ -219,6 +390,7 @@ def fast_phase(dev, lane) -> dict:
     th = float(s.fd_ini_th_fast)
     out = {}
     for name, imgs in cases:
+        b_ms, b_by, pass_share = fast_bound(imgs, th)
         sc, co = OK.fast_score_batch(imgs, th)
         sc2, co2 = OK.fast_score_batch(imgs, th)
         sr, cr = OK.fast_score_batch_reference(imgs, th)
@@ -229,15 +401,41 @@ def fast_phase(dev, lane) -> dict:
         check(torch.equal(sc, sr), f"FAST scores differ ({name})")
         check(int(co.sum()) > 0, f"FAST found no corner ({name})")
         err = (sc - sr).abs().max().item()
+        del sc2, co2, sr, cr
         us = time_calls_us(lambda: OK.fast_score_batch(imgs, th))
+        device_us = graph_us(lambda: OK.fast_score_batch(imgs, th), k=10)
         us_plain = time_calls_us(
             lambda: OK.fast_score_batch_reference(imgs, th))
         phase("fast_kernel", case=name, shape=list(imgs.shape),
               corners=int(co.sum()), max_abs_err=err, kernel_us=us,
-              plain_us=us_plain)
+              device_us=device_us, plain_us=us_plain, bound_us=b_ms * 1e3,
+              bound_by=b_by, share_of_bound=b_ms * 1e3 / device_us,
+              compass_pass_share=pass_share)
         if name == "level0":
-            out = dict(max_abs_err=err, ms=us / 1e3, plain_ms=us_plain / 1e3)
+            out = dict(max_abs_err=err, ms=us / 1e3,
+                       device_ms=device_us / 1e3, plain_ms=us_plain / 1e3,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return out
+
+
+def fast_bound(imgs, th: float) -> tuple[float, str, float]:
+    """FAST's roofline bound on ``imgs``: 4 bytes read and 5 written per
+    pixel (score and corner flag); the compass test for every pixel and
+    the full test for the pixels this input passes through it.  Also
+    returns the share of pixels that pass the compass test."""
+    c = imgs[:, 3:-3, 3:-3]
+    hi, lo = c + th, c - th
+    compass = [imgs[:, :-6, 3:-3], imgs[:, 3:-3, 6:], imgs[:, 6:, 3:-3],
+               imgs[:, 3:-3, :-6]]          # ring pixels 0, 4, 8, 12
+    n, e, s, w = compass
+    # the kernel's exact reject: a bright (dark) pixel at N or S, and at E
+    # or W
+    pass_b = ((n > hi) | (s > hi)) & ((e > hi) | (w > hi))
+    pass_d = ((n < lo) | (s < lo)) & ((e < lo) | (w < lo))
+    n_pass = int((pass_b | pass_d).sum())
+    n_px = imgs.numel()
+    return (*bound(9 * n_px, FAST_OPS_COMPASS * n_px + FAST_OPS_FULL * n_pass),
+            n_pass / n_px)
 
 
 def patch_phase(dev) -> dict:
@@ -272,11 +470,28 @@ def patch_phase(dev) -> dict:
             lambda: OK.patch_gather_reference(*args, sy, sx), n=n, warmup=3)
         us_wrapper = time_calls_us(lambda: OK.patch_gather(*args, sy, sx),
                                    n=n, warmup=3)
+        # the yardstick: one advanced-indexing call on index tensors made
+        # beforehand (the port never calls it)
+        im, y, x = args
+        rows = y.long()[..., None] * 8 + torch.arange(sy, device=dev)
+        cols = x.long()[..., None] * 128 + torch.arange(sx, device=dev)
+        bidx = torch.arange(im.shape[0], device=dev)[:, None, None, None]
+        r, c = rows[..., :, None], cols[..., None, :]
+        us_library = time_calls_us(lambda: im[bidx, r, c], n=n, warmup=3)
+        del rows, cols, bidx, r, c
+        B, H, W = img.shape
+        N = yt.shape[1]
+        b_ms, b_by = bound(4 * B * H * W + 2 * 4 * B * N
+                           + 4 * B * N * sy * sx, 0)
         phase("patch_gather", case=name, shape=list(img.shape),
-              blocks=yt.shape[1], block=[sy, sx], max_abs_err=0.0,
-              kernel_us=us, plain_us=us_plain, wrapper_us=us_wrapper)
-        out = dict(max_abs_err=0.0, ms=us / 1e3, plain_ms=us_plain / 1e3)
-        del args
+              blocks=N, block=[sy, sx], max_abs_err=0.0,
+              kernel_us=us, plain_us=us_plain, wrapper_us=us_wrapper,
+              library_us=us_library, bound_us=b_ms * 1e3, bound_by=b_by,
+              share_of_bound=b_ms * 1e3 / us)
+        out = dict(max_abs_err=0.0, ms=us / 1e3, device_ms=us / 1e3,
+                   plain_ms=us_plain / 1e3, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=us_library / 1e3)
+        del args, im, y, x
     torch.cuda.empty_cache()
     return out
 
@@ -629,9 +844,7 @@ def main() -> int:
         "replaces": "snakeslam_tpu/ops/pose_pallas.py:258",
         # the smooth lane's and the pixels lane's runs, each counted alone
         "launches": smooth_launches + pix["pose"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
+        **kern,
     }, {
         "name": "fast_score_batch",
         "route": "cuda",

@@ -15,7 +15,8 @@ counts, the top device kernels by total time, and the keyframe cycle's
 share: the device kernels launched while the local mapper dispatched or
 committed a keyframe cycle (triangulation, fusion, local BA and the
 back-end queues it feeds), with their count and device time, and the same
-for each stage's dispatch (triangulation, fusion, local BA).  Needs a CUDA
+for each stage's dispatch (triangulation, fusion, local BA), and the pose
+and FAST kernels' device time per launch from the profile.  Needs a CUDA
 device.
 """
 
@@ -87,6 +88,14 @@ def _kernels_under(events, name):
             ranges += 1
             walk(ev)
     return ranges, count, us
+
+
+def _device_us_per_launch(events, needle):
+    """Mean device time (us) of the kernels whose name holds ``needle``,
+    or None when the profile has none."""
+    hits = [e for e in events if needle in e.key]
+    n = sum(e.count for e in hits)
+    return sum(e.self_device_time_total for e in hits) / n if n else None
 
 
 def main() -> int:
@@ -162,6 +171,10 @@ def main() -> int:
         "device_busy_share": dev_us / 1e6 / wall,
         "device_kernels": n_kernels, "pose_kernel_launches": PF.LAUNCHES,
         "fast_kernel_launches": OK.FAST_LAUNCHES,
+        "pose_kernel_device_us_per_launch": _device_us_per_launch(
+            events, "pose_refine_kernel"),
+        "fast_kernel_device_us_per_launch": _device_us_per_launch(
+            events, "fast_kernel"),
         "device_calls": runner.n_device_calls,
         "keyframes": system.map.n_keyframes,
         "kf_cycle_device_kernels": cycle_kernels,

@@ -25,6 +25,7 @@ PATCH_SOURCE = "patch_gather.cu"
 FAST_LAUNCHES = 0     # kernel launches since the last reset (wrapper count)
 PATCH_LAUNCHES = 0
 _MAX_GRID_YZ = 65535
+FAST_TILE_Y = 16      # output rows of one FAST block (csrc/fast_score.cu)
 
 
 def _bind_fast(lib):
@@ -101,13 +102,13 @@ def fast_score_batch_reference(imgs: torch.Tensor, threshold: float = 20.0):
 def _launch_fast(imgs: torch.Tensor, threshold: float):
     global FAST_LAUNCHES
     B, H, W = imgs.shape
-    if B > _MAX_GRID_YZ or -(-H // 8) > _MAX_GRID_YZ:
+    if B > _MAX_GRID_YZ or -(-H // FAST_TILE_Y) > _MAX_GRID_YZ:
         raise ValueError(f"fast_score_batch: batch {B} x height {H} exceeds "
                          "the kernel's grid")
     score = torch.empty((B, H, W), dtype=torch.float32, device=imgs.device)
     corner = torch.empty((B, H, W), dtype=torch.bool, device=imgs.device)
     lib = cuda_build.load(FAST_SOURCE, _bind_fast)
-    stream = torch.cuda.current_stream(imgs.device).cuda_stream
+    stream = cuda_build.raw_stream(imgs)
     err = lib.snk_fast_score(imgs.data_ptr(), B, H, W, float(threshold),
                              score.data_ptr(),
                              corner.view(torch.uint8).data_ptr(), stream)
@@ -161,7 +162,7 @@ def _launch_patch(imgs, y_tile, x_tile, size_y, size_x):
     # 16-byte vector loads need every block row 16-byte aligned
     vec = int(W % 4 == 0 and imgs.data_ptr() % 16 == 0)
     lib = cuda_build.load(PATCH_SOURCE, _bind_patch)
-    stream = torch.cuda.current_stream(imgs.device).cuda_stream
+    stream = cuda_build.raw_stream(imgs)
     err = lib.snk_patch_gather(imgs.data_ptr(), y_tile.data_ptr(),
                                x_tile.data_ptr(), B, H, W, N, size_y, size_x,
                                vec, out.data_ptr(), stream)

@@ -11,6 +11,13 @@ its design.
 ``pose_refine_fused`` takes the JAX signature.  CUDA tensors launch the
 kernel; CPU tensors take ``pose_refine_fused_reference``, the plain PyTorch
 version with the same semantics.  ``LAUNCHES`` counts kernel launches.
+
+The CUDA call path is kept lean, since the window loop calls it twice per
+frame with one problem: the C entry point is bound once and cached here,
+inputs are checked in one pass of attribute reads (the error is worked out
+only when a check fails), inputs that already are contiguous float32 are
+passed as they are, the three outputs are views of one allocation, and the
+stream handle is read without making a Stream.
 """
 
 from __future__ import annotations
@@ -27,15 +34,23 @@ from snakeslam_tpu_torch.utils import cuda_build
 
 SOURCE = "pose_refine.cu"
 LAUNCHES = 0      # kernel launches since the last reset (wrapper count)
+MAX_N = 16384     # features of one problem: 2048 a CTA, 8 CTAs
+_entry = None     # the bound C entry point, set at the first launch
 
 
 def _bind(lib):
     fn = lib.snk_pose_refine_fused
     fn.argtypes = ([ctypes.c_void_p] * 11
                    + [ctypes.c_float] * 3
-                   + [ctypes.c_int] * 4
+                   + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
+
+
+def _load_entry():
+    global _entry
+    _entry = cuda_build.load(SOURCE, _bind).snk_pose_refine_fused
+    return _entry
 
 
 # ---------------------------------------------------------------------------
@@ -152,10 +167,8 @@ def pose_refine_fused_reference(T_init, points, uv, right, weight, mask,
 # the wrapper
 # ---------------------------------------------------------------------------
 
-def _launch(T_init, points, uv, right, weight, mask, cam, bf, chi2_mono,
-            chi2_stereo, outer_iters, inner_iters, damping):
-    global LAUNCHES
-    B, N = points.shape[:2]
+def _reject(T_init, points, uv, right, weight, mask, cam, bf, lead):
+    """Raise the error for inputs that failed ``_launch``'s checks."""
     f32 = torch.float32
     for name, t in (("T_init", T_init), ("points", points), ("uv", uv),
                     ("right", right), ("weight", weight), ("cam.fx", cam.fx),
@@ -164,9 +177,10 @@ def _launch(T_init, points, uv, right, weight, mask, cam, bf, chi2_mono,
         if t.dtype != f32:
             raise TypeError(f"pose_refine_fused: {name} must be float32, "
                             f"got {t.dtype}")
-    for name, t, shape in (("T_init", T_init, (B, 4, 4)),
-                           ("uv", uv, (B, N, 2)), ("right", right, (B, N)),
-                           ("weight", weight, (B, N)), ("mask", mask, (B, N))):
+    for name, t, shape in (("T_init", T_init, lead[:-1] + (4, 4)),
+                           ("points", points, lead + (3,)),
+                           ("uv", uv, lead + (2,)), ("right", right, lead),
+                           ("weight", weight, lead), ("mask", mask, lead)):
         if tuple(t.shape) != shape:
             raise ValueError(f"pose_refine_fused: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
@@ -174,27 +188,63 @@ def _launch(T_init, points, uv, right, weight, mask, cam, bf, chi2_mono,
                     ("cam.cx", cam.cx), ("cam.cy", cam.cy), ("bf", bf)):
         if t.numel() != 1:
             raise ValueError(f"pose_refine_fused: {name} must be a scalar")
-    T_init = T_init.contiguous()
-    points = points.contiguous()
-    uv = uv.contiguous()
-    right = right.contiguous()
-    weight = weight.contiguous()
-    mask_u8 = mask.to(torch.bool).contiguous().view(torch.uint8)
-    scal = [t.contiguous() for t in (cam.fx, cam.fy, cam.cx, cam.cy, bf)]
-    T_out = torch.empty((B, 4, 4), dtype=f32, device=points.device)
-    inl = torch.empty((B, N), dtype=torch.bool, device=points.device)
-    n_inl = torch.empty((B,), dtype=torch.int32, device=points.device)
-    lib = cuda_build.load(SOURCE, _bind)
-    stream = torch.cuda.current_stream(points.device).cuda_stream
-    err = lib.snk_pose_refine_fused(
-        T_init.data_ptr(), points.data_ptr(), uv.data_ptr(),
-        right.data_ptr(), weight.data_ptr(), mask_u8.data_ptr(),
-        *[s.data_ptr() for s in scal],
-        float(chi2_mono), float(chi2_stereo), float(damping),
-        int(outer_iters), int(inner_iters), int(B), int(N),
-        T_out.data_ptr(), inl.view(torch.uint8).data_ptr(),
-        n_inl.data_ptr(), stream)
-    cuda_build.check_launch(err, "pose_refine_fused")
+    raise ValueError(f"pose_refine_fused: points has shape "
+                     f"{tuple(points.shape)}, expected (..., N, 3) with "
+                     f"N <= {MAX_N}")
+
+
+def _launch(T_init, points, uv, right, weight, mask, cam, bf, chi2_mono,
+            chi2_stereo, outer_iters, inner_iters, damping):
+    """One launch for (B, ...) or unbatched inputs; outputs take the
+    inputs' batching."""
+    global LAUNCHES
+    f32 = torch.float32
+    lead = tuple(points.shape[:-1])
+    fx, fy, cx, cy = cam
+    if not (len(lead) in (1, 2) and points.shape[-1] == 3
+            and lead[-1] <= MAX_N
+            and T_init.dtype is f32 and points.dtype is f32
+            and uv.dtype is f32 and right.dtype is f32
+            and weight.dtype is f32 and fx.dtype is f32
+            and fy.dtype is f32 and cx.dtype is f32 and cy.dtype is f32
+            and bf.dtype is f32
+            and T_init.shape == lead[:-1] + (4, 4)
+            and uv.shape == lead + (2,) and right.shape == lead
+            and weight.shape == lead and mask.shape == lead
+            and fx.numel() == 1 and fy.numel() == 1 and cx.numel() == 1
+            and cy.numel() == 1 and bf.numel() == 1):
+        _reject(T_init, points, uv, right, weight, mask, cam, bf, lead)
+    if not T_init.is_contiguous():
+        T_init = T_init.contiguous()
+    if not points.is_contiguous():
+        points = points.contiguous()
+    if not uv.is_contiguous():
+        uv = uv.contiguous()
+    if not right.is_contiguous():
+        right = right.contiguous()
+    if not weight.is_contiguous():
+        weight = weight.contiguous()
+    if mask.dtype != torch.bool or not mask.is_contiguous():
+        mask = mask.to(torch.bool).contiguous()
+    N = lead[-1]
+    B = lead[0] if len(lead) == 2 else 1
+    # one allocation: the poses (64 B each), the counts (4 B each), then
+    # the inlier flags, viewed apart
+    out = torch.empty(68 * B + B * N, dtype=torch.uint8, device=points.device)
+    T_b, n_b, inl_b = out.split((64 * B, 4 * B, B * N))
+    T_out = T_b.view(f32).view(lead[:-1] + (4, 4))
+    n_inl = n_b.view(torch.int32).view(lead[:-1])
+    inl = inl_b.view(torch.bool).view(lead)
+    base = out.data_ptr()
+    fn = _entry or _load_entry()
+    err = fn(T_init.data_ptr(), points.data_ptr(), uv.data_ptr(),
+             right.data_ptr(), weight.data_ptr(), mask.data_ptr(),
+             fx.data_ptr(), fy.data_ptr(), cx.data_ptr(), cy.data_ptr(),
+             bf.data_ptr(), chi2_mono, chi2_stereo, damping, outer_iters,
+             inner_iters, B, N, 0, base, base + 68 * B, base + 64 * B,
+             cuda_build.raw_stream(points))
+    if err:
+        cuda_build.check_launch(err, "pose_refine_fused")
     LAUNCHES += 1
     return T_out, inl, n_inl
 
@@ -212,24 +262,29 @@ def pose_refine_fused(T_init, points, uv, right, weight, mask,
     ``bf`` are 0-d float32 tensors on the same device.  CUDA tensors launch
     the kernel, CPU tensors take the plain version; mixed devices raise.
     """
-    tensors = (T_init, points, uv, right, weight, mask, *cam, bf)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
+    device = points.device
+    fx, fy, cx, cy = cam
+    if (T_init.device != device or uv.device != device
+            or right.device != device or weight.device != device
+            or mask.device != device or fx.device != device
+            or fy.device != device or cx.device != device
+            or cy.device != device or bf.device != device):
+        tensors = (T_init, points, uv, right, weight, mask, *cam, bf)
         raise ValueError(f"pose_refine_fused: tensors on mixed devices "
-                         f"{sorted(str(d) for d in devices)}")
-    device = devices.pop()
+                         f"{sorted({str(t.device) for t in tensors})}")
+    if device.type == "cuda":
+        return _launch(T_init, points, uv, right, weight, mask, cam, bf,
+                       float(chi2_mono), float(chi2_stereo), int(outer_iters),
+                       int(inner_iters), float(damping))
+    if device.type != "cpu":
+        raise ValueError(f"pose_refine_fused: unsupported device {device}")
     batched = points.dim() == 3
     if not batched:
         T_init, points, uv, right, weight, mask = (
             t[None] for t in (T_init, points, uv, right, weight, mask))
-    args = (T_init, points, uv, right, weight, mask, cam, bf, chi2_mono,
-            chi2_stereo, outer_iters, inner_iters, damping)
-    if device.type == "cuda":
-        T, inl, n = _launch(*args)
-    elif device.type == "cpu":
-        T, inl, n = pose_refine_fused_reference(*args)
-    else:
-        raise ValueError(f"pose_refine_fused: unsupported device {device}")
+    T, inl, n = pose_refine_fused_reference(
+        T_init, points, uv, right, weight, mask, cam, bf, chi2_mono,
+        chi2_stereo, outer_iters, inner_iters, damping)
     if not batched:
         return T[0], inl[0], n[0]
     return T, inl, n

@@ -16,6 +16,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -91,6 +93,12 @@ def load(source: str, bind) -> ctypes.CDLL:
             bind(lib)
             _loaded[source] = lib
         return lib
+
+
+def raw_stream(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on ``t``'s device, as the int
+    a C entry point takes (no Stream object is made)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_launch(err: int, what: str):

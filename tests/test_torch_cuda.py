@@ -6,9 +6,16 @@ when no NVIDIA GPU is present (a CUDA kernel has no CPU mode).  On a card:
 
 Pose kernel tolerances are those of tests/test_pose_pallas.py: pose atol
 2e-4, inlier agreement > 0.99, inlier counts within max(3, 1%) — the
-kernel's fixed-order block reduction sums in another f32 order than torch.
-The FAST kernel sums in its plain version's order and the patch gather only
-copies, so both are held bit-identical.
+kernel's fixed-order cluster reduction sums in another f32 order than
+torch.  It is held at N = 128 (one CTA), 512, 1000 (a ragged CTA), 1024 and
+2048 (threads loop over features), B = 1 and 3, both iteration schedules,
+stereo and mono, and on the edge cases of ``utils/pose_problems.py``;
+reruns are bit-identical and a batched call equals its unbatched calls bit
+for bit.  The FAST kernel sums in its plain version's order and the patch
+gather only copies, so both are held bit-identical; FAST at W = 752 (the
+float4 path), 627 and 157 (scalar), H = 7 (less than a tile) and 120, B = 1
+and 64, a misaligned input and corners on tile and 4-pixel-run
+boundaries.
 
 The keyframe back-end's ops (plain torch, no hand kernel) run on the card
 without a host sync (``torch.cuda.set_sync_debug_mode("error")``): the
@@ -23,7 +30,7 @@ import torch
 from snakeslam_tpu_torch.ops import orb as ORB
 from snakeslam_tpu_torch.ops import orb_kernels as OK
 from snakeslam_tpu_torch.ops import pose_fused as PF
-from snakeslam_tpu_torch.utils.pose_problems import pose_problem
+from snakeslam_tpu_torch.utils.pose_problems import EDGE_CASES, pose_problem
 
 pytestmark = pytest.mark.cuda
 
@@ -40,26 +47,79 @@ def _batch(args):
     return [t[None] for t in tensors] + [cam, bf]
 
 
-@pytest.mark.parametrize("N", [512, 1024])
+def _stack(probs):
+    stack = [torch.stack([p[i] for p in probs]) for i in range(6)]
+    return stack + [probs[0][6], probs[0][7]]
+
+
+def _check_pose(T, inl, n, Tr, ir, nr):
+    """The kernel's (T, inl, n) against the plain version's, batched."""
+    np.testing.assert_allclose(T.cpu().numpy(), Tr.cpu().numpy(), atol=2e-4)
+    assert (inl == ir).float().mean().item() > 0.99
+    for c, cr, f in zip(n.reshape(-1).tolist(), nr.reshape(-1).tolist(),
+                        inl.reshape(n.numel(), -1)):
+        assert abs(c - cr) <= max(3, cr // 100), (c, cr)
+        assert c == int(f.sum())
+
+
+@pytest.mark.parametrize("N", [128, 512, 1000, 1024, 2048])
 @pytest.mark.parametrize("stereo", [True, False])
 def test_kernel_matches_plain_version(cuda_device, N, stereo):
-    args, T_gt = pose_problem(3 + N, N, stereo, cuda_device)
-    launches = PF.LAUNCHES
-    T, inl, n = PF.pose_refine_fused(*args, outer_iters=2, inner_iters=2)
-    torch.cuda.synchronize()
-    assert PF.LAUNCHES == launches + 1
-    Tr, ir, nr = PF.pose_refine_fused_reference(*_batch(args))
-    np.testing.assert_allclose(T.cpu().numpy(), Tr[0].cpu().numpy(),
-                               atol=2e-4)
-    assert (inl == ir[0]).float().mean().item() > 0.99
-    n, nr = int(n), int(nr[0])
-    assert abs(n - nr) <= max(3, nr // 100), (n, nr)
-    assert n == int(inl.sum())
-    assert np.linalg.norm(T.cpu().numpy()[:3, 3] - T_gt[:3, 3]) < 2e-3
+    for B in (1, 3):
+        probs = [pose_problem(3 + N + k, N, stereo, cuda_device)
+                 for k in range(B)]
+        args = _stack([p[0] for p in probs]) if B > 1 else probs[0][0]
+        batched = args if B > 1 else _batch(args)
+        for outer, inner in ((1, 3), (2, 2)):
+            kw = dict(outer_iters=outer, inner_iters=inner)
+            launches = PF.LAUNCHES
+            T, inl, n = PF.pose_refine_fused(*args, **kw)
+            T2, inl2, n2 = PF.pose_refine_fused(*args, **kw)
+            torch.cuda.synchronize()
+            assert PF.LAUNCHES == launches + 2
+            assert torch.equal(T, T2) and torch.equal(inl, inl2) \
+                and torch.equal(n, n2), "reruns must be bit-identical"
+            Tr, ir, nr = PF.pose_refine_fused_reference(*batched, **kw)
+            if B == 1:
+                Tr, ir, nr = Tr[0], ir[0], nr[0]
+            _check_pose(T, inl, n, Tr, ir, nr)
+            # the ground truth after the full (2, 2) schedule, where 60
+            # outliers and 40 masked slots leave enough features
+            if N < 512 or outer == 1:
+                continue
+            T_gt = np.stack([p[1] for p in probs])
+            err = np.linalg.norm(T.cpu().numpy().reshape(B, 4, 4)[:, :3, 3]
+                                 - T_gt[:, :3, 3], axis=-1)
+            assert err.max() < 2e-3, err
 
 
-def test_kernel_is_deterministic_and_batched(cuda_device):
-    probs = [pose_problem(50 + k, 1024, k % 2 == 0, cuda_device)[0]
+@pytest.mark.parametrize("kind", sorted(EDGE_CASES))
+@pytest.mark.parametrize("stereo", [True, False])
+def test_kernel_edge_cases(cuda_device, kind, stereo):
+    args, T_gt = EDGE_CASES[kind](11, 1000, stereo, cuda_device)
+    for outer, inner in ((1, 3), (2, 2)):
+        kw = dict(outer_iters=outer, inner_iters=inner)
+        T, inl, n = PF.pose_refine_fused(*args, **kw)
+        Tr, ir, nr = PF.pose_refine_fused_reference(*_batch(args), **kw)
+        torch.cuda.synchronize()
+        _check_pose(T, inl, n, Tr[0], ir[0], nr[0])
+        if kind == "all_masked":
+            assert int(n) == 0 and not bool(inl.any())
+            T0 = args[0][None]
+            want = PF.lie.se3(PF._gram_schmidt(T0[:, :3, :3]), T0[:, :3, 3])
+            np.testing.assert_allclose(T.cpu().numpy(), want[0].cpu().numpy(),
+                                       atol=1e-6)
+        else:
+            T0 = args[0]
+            z = args[1] @ T0[2, :3] + T0[2, 3]
+            assert int((z < 0).sum()) >= 250
+            assert not bool(inl[z < 0].any())
+            assert np.linalg.norm(T.cpu().numpy()[:3, 3] - T_gt[:3, 3]) < 2e-3
+
+
+@pytest.mark.parametrize("N", [128, 1000, 1024, 2048])
+def test_kernel_is_deterministic_and_batched(cuda_device, N):
+    probs = [pose_problem(50 + k, N, k % 2 == 0, cuda_device)[0]
              for k in range(3)]
     stack = [torch.stack([p[i] for p in probs]) for i in range(6)]
     cam, bf = probs[0][6], probs[0][7]
@@ -165,6 +225,53 @@ def test_fast_kernel_bit_identical(cuda_device, kind):
     assert torch.equal(c, cr) and torch.equal(s, sr)
     assert torch.equal(c, c2) and torch.equal(s, s2)
     assert int(c.sum()) > 100
+
+
+def _boundary_images(B, H, W, seed=0):
+    """Integer noise plus bright and dark squares whose corners sit on the
+    FAST kernel's tile edges (x = 127 / 128, y = 15 / 16) and on the edges
+    of its 4-pixel runs (x = 3, 4, 5 and the last columns)."""
+    rng = np.random.default_rng(seed)
+    imgs = rng.integers(90, 111, size=(B, H, W)).astype(np.float32)
+    xs = [3, 4, 5, 123, 124, 126, 127, 128, 129, 255, 256, W - 9, W - 8]
+    ys = [3, 4, 14, 15, 16, 17, 31, 32, H - 8]
+    for b in range(B):
+        for k, (x, y) in enumerate((x, y) for x in xs for y in ys):
+            if 0 <= x < W and 0 <= y < H:
+                imgs[b, y:y + 6, x:x + 6] = 200.0 if (k + b) % 2 else 10.0
+    return torch.from_numpy(imgs)
+
+
+@pytest.mark.parametrize("W", [752, 627, 157])
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("H", [7, 120])
+def test_fast_kernel_shapes_bit_identical(cuda_device, W, B, H):
+    """The float4 path (W = 752), the scalar path (627, 157), images less
+    than a tile high, on noise with corners on tile and run boundaries."""
+    imgs = _boundary_images(B, H, W).to(cuda_device)
+    s, c = OK.fast_score_batch(imgs, 20.0)
+    sr, cr = OK.fast_score_batch_reference(imgs, 20.0)
+    torch.cuda.synchronize()
+    assert torch.equal(c, cr) and torch.equal(s, sr)
+    if H > 7:
+        assert int(c.sum()) > 50 * B
+        # corners on both sides of the tile edge at x = 127 / 128
+        assert bool(c[..., 120:136].any())
+
+
+def test_fast_kernel_misaligned_input(cuda_device):
+    """A contiguous input whose data is not 16-byte aligned takes the
+    scalar path, W % 4 == 0 notwithstanding."""
+    imgs = _boundary_images(2, 40, 752)
+    buf = torch.zeros(imgs.numel() + 1, device=cuda_device)
+    shifted = buf[1:].view(imgs.shape)
+    shifted.copy_(imgs.to(cuda_device))
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    s, c = OK.fast_score_batch(shifted, 20.0)
+    sr, cr = OK.fast_score_batch_reference(shifted, 20.0)
+    torch.cuda.synchronize()
+    assert torch.equal(c, cr) and torch.equal(s, sr)
+    assert int(c.sum()) > 50
 
 
 @pytest.mark.parametrize("W", [384, 390])

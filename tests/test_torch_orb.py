@@ -113,6 +113,26 @@ def test_fast_reference_matches_jax(fast_inputs, kind):
     assert np.array_equal(s_1.numpy(), s_t[1])
 
 
+def test_fast_compass_reject_is_exact():
+    """The CUDA kernel skips the full ring for a pixel whose compass pixels
+    (ring positions 0, 4, 8, 12) rule out a 9-arc.  Over all 65536 ring
+    masks, every mask that the port's arc test takes as a corner has at
+    least 2 compass bits, and two of them adjacent on the ring: (0 or 8)
+    and (4 or 12), the test the kernel makes."""
+    masks = torch.arange(1 << 16, dtype=torch.int32)
+    arc = OK._arc9(masks)
+    bit = {k: (masks >> k) & 1 for k in (0, 4, 8, 12)}
+    n_compass = bit[0] + bit[4] + bit[8] + bit[12]
+    adjacent = ((bit[0] | bit[8]) & (bit[4] | bit[12])) == 1
+    assert int(arc.sum()) > 0
+    assert bool((n_compass[arc] >= 2).all())
+    assert bool(adjacent[arc].all())
+    # both are tight: a 9-arc can hold exactly 2 compass bits, and the
+    # adjacent test rejects masks the count test lets through (N and S)
+    assert int(n_compass[arc].min()) == 2
+    assert bool(((n_compass >= 2) & ~adjacent).any())
+
+
 def test_patch_gather_reference_matches_pallas():
     rng = np.random.default_rng(0)
     img = rng.uniform(0, 255, (2, 104, 384)).astype(np.float32)
