@@ -53,7 +53,24 @@ exits non-zero:
      the CPU solve; timed;
  12. triangulation: triangulate_pairs_batch over 10 neighbour pairs at
      1024 slots on the card without a host sync, integer outputs identical
-     to the CPU's; timed.
+     to the CPU's; timed;
+ 13. loop lane: the JAX bench's loop lane (60000-point world, seed 7, 400
+     frames of an outward full orbit at 200 fps, 1024 feature slots, 4096
+     pinned local-map slots, LBA slots 32 / 8192 / 8, th_map 400) through
+     WindowedRunner (window 64) with the whole system (loop closing,
+     relocalization, the keyframe back-end) on the card, then
+     ``finalize()``; pose-kernel launches counted apart for tracking, loop
+     verification and the end-of-run realign; gated against the JAX
+     package's CPU run of the same lane (PERF.md);
+ 14. batched pose kernel: the realign's launch (B frames, N = 1024, 4 x 3
+     iterations) and a loop verification's (B = 1, 3 x 3) on the inputs the
+     loop lane gave them, against the plain version, bit-identical reruns,
+     timed beside their bounds;
+ 15. loop closing CPU against GPU: a 20-keyframe ring with its newest three
+     keyframes split off and drifted (utils/loop_problems.py), closed with
+     the global-BA polish on both devices; then the pose-graph solve and
+     the Sim3 RANSAC of that closure rerun on the card without a host sync
+     (the PGO bit-identical).
 
 The line before the last is one JSON object with the kernels' names,
 routes, launch counts, errors, times (``ms`` per call, ``device_ms`` per
@@ -67,6 +84,7 @@ Imports only the port, numpy and torch.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -82,20 +100,31 @@ from snakeslam_tpu_torch.frontend.synthetic_source import (
     apply_world_to_settings,
     synthetic_frames,
 )
+from snakeslam_tpu_torch.loop import loop_closing as LC
+from snakeslam_tpu_torch.loop.keyframe_database import KeyframeDatabase
+from snakeslam_tpu_torch.mapping import local_mapping as LM
 from snakeslam_tpu_torch.ops import ba as BA
 from snakeslam_tpu_torch.ops import orb as ORB
 from snakeslam_tpu_torch.ops import orb_kernels as OK
+from snakeslam_tpu_torch.ops import pgo as PGO
 from snakeslam_tpu_torch.ops import pose_fused as PF
+from snakeslam_tpu_torch.ops import sim3_solver as SIM3
+from snakeslam_tpu_torch.optim import gba as GBA
 from snakeslam_tpu_torch.system.settings import InputType, Settings
 from snakeslam_tpu_torch.ops.triangulate_pairs import triangulate_pairs_batch
+from snakeslam_tpu_torch.system import slam as SLAM
 from snakeslam_tpu_torch.system.slam import SlamSystem
 from snakeslam_tpu_torch.tracking.staging import HostCopy
+from snakeslam_tpu_torch.tracking import windowed as WIN
 from snakeslam_tpu_torch.tracking.windowed import WindowedRunner
 from snakeslam_tpu_torch.utils import cuda_build
+from snakeslam_tpu_torch.utils import loop_problems as LP
 from snakeslam_tpu_torch.utils.backend_problems import ba_problem, pair_problem
 from snakeslam_tpu_torch.utils.pose_problems import pose_problem
 from snakeslam_tpu_torch.utils.render_world import render_sequence
-from snakeslam_tpu_torch.utils.synthetic import SyntheticWorld, orbit_trajectory
+from snakeslam_tpu_torch.utils.synthetic import (SyntheticWorld,
+                                                 loop_trajectory,
+                                                 orbit_trajectory)
 
 POSE_ATOL = 2e-4          # tests/test_pose_pallas.py tolerances
 TIMED_CALLS = 100
@@ -125,6 +154,15 @@ JAX_PIXELS = dict(tracked=160, keyframes=5, ate_m=0.061596934852420904)
 JAX_SMOOTH = dict(tracked=400, keyframes=5, ate_m=0.0035097656632509895,
                   lba_runs=4, triangulated=0, fused=1205)
 BA_ATOL = 1e-4            # solve_ba on the card against the CPU
+LOOP_FRAMES, LOOP_WINDOW = 400, 64
+# the JAX package's run of the loop lane on the CPU, one window per fetch
+# (scripts/jax_loop_reference.py; PERF.md): the loop lane is gated against
+# it, keyframes within 10% and ATE within 25% before and after finalize
+JAX_LOOP = dict(tracked=400, keyframes=81, points=6280,
+                ate_m=0.020929448906971324, loops_closed=1,
+                keyframes_final=71, ate_final_m=0.011153146451384117)
+POSE_BATCHED_ATOL = 1e-5  # batched pose kernel against its plain version
+RING_CENTRE_ATOL = 1e-3   # loop closing's keyframe centres, CPU vs GPU
 
 
 def phase(name: str, **fields):
@@ -198,13 +236,14 @@ def time_calls_us(fn, n: int = TIMED_CALLS, warmup: int = 10) -> float:
     return statistics.median(times)
 
 
-def pose_bound(n: int, outer: int, inner: int) -> tuple[float, str]:
-    """The pose refine's roofline bound for one problem of ``n`` features:
-    T_init, points, uv, right, weight, mask and the five camera scalars
-    read once, the pose, inlier flags and count written once."""
-    nbytes = 64 + n * (12 + 8 + 4 + 4 + 1) + 5 * 4 + 64 + n + 4
-    ops = n * (POSE_OPS_PER_FEATURE_STEP * outer * inner
-               + POSE_OPS_PER_FEATURE_RECLASS * outer)
+def pose_bound(n: int, outer: int, inner: int,
+               batch: int = 1) -> tuple[float, str]:
+    """The pose refine's roofline bound for ``batch`` problems of ``n``
+    features: T_init, points, uv, right, weight, mask and the five camera
+    scalars read once, the poses, inlier flags and counts written once."""
+    nbytes = batch * (64 + n * (12 + 8 + 4 + 4 + 1) + 64 + n + 4) + 5 * 4
+    ops = batch * n * (POSE_OPS_PER_FEATURE_STEP * outer * inner
+                       + POSE_OPS_PER_FEATURE_RECLASS * outer)
     return bound(nbytes, ops)
 
 
@@ -814,6 +853,300 @@ def cpu_gpu_phase(dev):
               f"{k}: GPU {bg[k]}, CPU {bc[k]}")
 
 
+def loop_settings(world) -> Settings:
+    """bench.py's _build_loop settings: _base_settings with the local-map
+    bucket pinned and th_map 400."""
+    s = smooth_settings(world)
+    s.local_map_slots = 4096
+    s.th_map = 400
+    return s
+
+
+class Probe:
+    """While installed, records the calls of ``owner.name``: their count,
+    the host seconds inside them (inclusive: a call nested in another
+    probed one counts in both), the pose-kernel launches they made, the
+    arguments of the last one and, with ``keep``, their return values."""
+
+    def __init__(self, owner, name, keep: bool = False):
+        self.owner, self.name, self.keep = owner, name, keep
+        self.inner = getattr(owner, name)
+        self.calls = self.launches = 0
+        self.seconds = 0.0
+        self.out, self.args = [], None
+
+    def __enter__(self):
+        def wrapped(*a, **k):
+            n0, t0 = PF.LAUNCHES, time.perf_counter()
+            self.args = (a, k)
+            try:
+                r = self.inner(*a, **k)
+            finally:
+                self.calls += 1
+                self.launches += PF.LAUNCHES - n0
+                self.seconds += time.perf_counter() - t0
+            if self.keep:
+                self.out.append(r)
+            return r
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.inner)
+
+
+def loop_lane_phase(dev) -> dict:
+    world = SyntheticWorld(n_points=60000, seed=7)
+    s = loop_settings(world)
+    system = SlamSystem(s, dev)
+    frames = list(synthetic_frames(
+        world, loop_trajectory(LOOP_FRAMES, radius=7.0, fps=200.0), s,
+        noise_px=0.3))
+    runner = WindowedRunner(system, window=LOOP_WINDOW)
+    lc = system.loop_closing
+    correct_ms = []
+    inner_correct = lc._correct_loop
+
+    def timed_correct(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return inner_correct(*a, **k)
+        finally:
+            correct_ms.append((time.perf_counter() - t0) * 1e3)
+
+    lc._correct_loop = timed_correct
+    # where the host's time goes (inclusive seconds per method)
+    timed = [Probe(WindowedRunner, "_dispatch"),
+             Probe(WindowedRunner, "_consume"),
+             Probe(WindowedRunner, "_local_map"),
+             Probe(WIN._InFlight, "fetch"),
+             Probe(SlamSystem, "process_frame"),
+             Probe(LM.LocalMapper, "dispatch_deferred"),
+             Probe(LM.LocalMapper, "commit_deferred"),
+             Probe(LC.LoopClosing, "process"),
+             Probe(LM.LocalMapper, "process_sync")]
+    with contextlib.ExitStack() as stack:
+        for t in timed:
+            stack.enter_context(t)
+        verify = stack.enter_context(Probe(LC, "_verify_search_refine"))
+        verify_kernel = stack.enter_context(Probe(LC, "pose_refine_fused"))
+        PF.LAUNCHES = 0
+        t0 = time.perf_counter()
+        runner.run(frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_launches = PF.LAUNCHES
+    host_s = {f"{t.owner.__name__}.{t.name}": [t.seconds, t.calls]
+              for t in timed}
+    tracked = len(system.tracker.trajectory)
+    kfs, pts = system.map.n_keyframes, system.map.n_points
+    ate, _, _ = system.ate_against_gt(with_scale=False)
+    loops = lc.n_loops_closed
+    with Probe(GBA.GlobalBA, "realign_intermediate_frames",
+                   keep=True) as realign, \
+            Probe(GBA, "pose_refine_fused") as realign_kernel:
+        n0 = PF.LAUNCHES
+        t0 = time.perf_counter()
+        system.finalize()
+        torch.cuda.synchronize()
+        finalize_s = time.perf_counter() - t0
+        finalize_launches = PF.LAUNCHES - n0
+    ate_final, _, _ = system.ate_against_gt(with_scale=False)
+    kfs_final = system.map.n_keyframes
+    tracking = run_launches - verify.launches
+    phase("loop_lane", frames=LOOP_FRAMES, window=LOOP_WINDOW,
+          tracked=tracked, keyframes=kfs, points=pts, ate_m=ate,
+          loops_closed=loops, wall_s=wall, fps=tracked / wall,
+          loop_correction_ms=correct_ms, finalize_s=finalize_s,
+          keyframes_final=kfs_final, points_final=system.map.n_points,
+          ate_final_m=ate_final, device_calls=runner.n_device_calls,
+          pose_launches=dict(tracking=tracking,
+                             verification=verify.launches,
+                             realign=finalize_launches),
+          verifications=verify.calls, realign_batch=realign.out,
+          backend=backend_counts(system), host_s_and_calls=host_s,
+          jax_cpu=JAX_LOOP)
+    J = JAX_LOOP
+    check(tracked == J["tracked"], f"loop lane tracked {tracked} of 400")
+    check(loops >= 1, "the loop lane closed no loop")
+    check(abs(kfs - J["keyframes"]) <= 0.1 * J["keyframes"],
+          f"loop lane {kfs} keyframes, the JAX run {J['keyframes']}")
+    check(abs(kfs_final - J["keyframes_final"])
+          <= 0.1 * J["keyframes_final"],
+          f"loop lane {kfs_final} keyframes after finalize, the JAX run "
+          f"{J['keyframes_final']}")
+    check(abs(ate - J["ate_m"]) <= 0.25 * J["ate_m"],
+          f"loop lane ATE {ate} m, the JAX run {J['ate_m']} m")
+    check(abs(ate_final - J["ate_final_m"]) <= 0.25 * J["ate_final_m"],
+          f"loop lane ATE {ate_final} m after finalize, the JAX run "
+          f"{J['ate_final_m']} m")
+    check(verify.calls >= 1 and verify.launches == verify.calls,
+          f"{verify.launches} pose launches for {verify.calls} loop "
+          "verifications")
+    check(tracking == 2 * LOOP_WINDOW * runner.n_device_calls,
+          f"{tracking} tracking launches for {runner.n_device_calls} windows")
+    check(realign.calls == 2 and finalize_launches == 2
+          and all(b > 0 for b in realign.out),
+          f"{finalize_launches} pose launches for the realign calls "
+          f"{realign.out}")
+    return dict(launches=run_launches + finalize_launches,
+                realign_args=realign_kernel.args,
+                verify_args=verify_kernel.args)
+
+
+def plain_spread(args, kw, trials: int = 16) -> float:
+    """How far the plain version's pose moves when its points change by
+    one float32 ulp: the max over ``trials`` seeded random 1-ulp
+    perturbations (one problem, batched as (1, ...))."""
+    T, _, _ = PF.pose_refine_fused_reference(*args, **kw)
+    gen = torch.Generator(device=args[1].device).manual_seed(0)
+    spread = 0.0
+    for _ in range(trials):
+        ulp = (torch.rand(args[1].shape, generator=gen,
+                          device=args[1].device) - 0.5) * 2.4e-7
+        Tp, _, _ = PF.pose_refine_fused_reference(
+            args[0], args[1] * (1 + ulp), *args[2:], **kw)
+        spread = max(spread, (Tp - T).abs().max().item())
+    return spread
+
+
+def pose_batched_phase(dev, lane) -> None:
+    """The pose kernel on the loop lane's own inputs: the realign's batched
+    launch and a loop verification's single one, against the plain
+    version, reruns bit-identical, timed beside the bound.
+
+    Problems the two solve alike (the same inlier set, >= 10 inliers:
+    what the realign keeps) are held within POSE_BATCHED_ATOL.  The others
+    (a chi2 threshold flipped between the two, or a start far from the
+    answer) may differ more only where the plain version is chaotic
+    itself: 1-ulp changes of its points move its own pose at least half as
+    far (on the loop lane one frame ends with 0 to 202 inliers in the
+    plain version alone).  At most 2% of a batch may be such problems."""
+    for name, (a, kw) in (("realign", lane["realign_args"]),
+                          ("verification", lane["verify_args"])):
+        T0, pts = a[0], a[1]
+        batched = T0.dim() == 3
+        if not batched:
+            a = tuple(t[None] for t in a[:6]) + tuple(a[6:])
+        B, N = pts.shape[0] if batched else 1, pts.shape[-2]
+        outer, inner = kw["outer_iters"], kw["inner_iters"]
+        T, inl, cnt = PF.pose_refine_fused(*a, **kw)
+        T2, inl2, cnt2 = PF.pose_refine_fused(*a, **kw)
+        Tr, ir, nr = PF.pose_refine_fused_reference(*a, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(T, T2) and torch.equal(inl, inl2)
+              and torch.equal(cnt, cnt2),
+              f"batched pose kernel rerun not bit-identical ({name})")
+        per = (T - Tr).abs().amax(dim=(1, 2))
+        kept = (nr >= 10) & (inl == ir).all(dim=-1)
+        err_kept = per[kept].max().item() if bool(kept.any()) else 0.0
+        flipped = torch.nonzero(~kept & (per > POSE_ATOL))[:, 0]
+        spreads = {b: plain_spread([t[b:b + 1] for t in a[:6]]
+                                   + list(a[6:]), kw)
+                   for b in flipped.tolist()}
+        # each problem alone through the kernel: the batched launch must
+        # give the same bits as single ones
+        single_same = all(
+            torch.equal(PF.pose_refine_fused(
+                *[t[b:b + 1] for t in a[:6]], *a[6:], **kw)[0][0], T[b])
+            for b in sorted({0, B - 1, int(per.argmax())}))
+        agree = (inl == ir).float().mean().item()
+        dcnt = (cnt - nr)[kept].abs().max().item() if bool(kept.any()) \
+            else 0
+        call_us = time_calls_us(lambda: PF.pose_refine_fused(*a, **kw), n=50)
+        device_us = graph_us(lambda: PF.pose_refine_fused(*a, **kw), k=20)
+        plain_us = time_calls_us(
+            lambda: PF.pose_refine_fused_reference(*a, **kw), n=10, warmup=2)
+        b_ms, b_by = pose_bound(N, outer, inner, batch=B)
+        phase("pose_batched", case=name, B=B, N=N, iters=[outer, inner],
+              max_abs_err=per.max().item(), max_abs_err_kept=err_kept,
+              kept=int(kept.sum()), inlier_agreement=agree,
+              err_quantiles=torch.quantile(
+                  per, torch.tensor([0.5, 0.9, 0.99], device=per.device)
+              ).tolist(),
+              flipped={b: dict(err=per[b].item(), count=int(cnt[b]),
+                               plain_count=int(nr[b]), plain_spread=sp)
+                       for b, sp in spreads.items()},
+              batched_equals_single=single_same,
+              max_count_diff_kept=dcnt, call_us=call_us,
+              device_us=device_us, device_us_per_problem=device_us / B,
+              plain_us=plain_us, bound_us=b_ms * 1e3, bound_by=b_by)
+        check(err_kept <= POSE_BATCHED_ATOL,
+              f"batched pose error {err_kept} on kept problems ({name})")
+        for b, sp in spreads.items():
+            check(per[b].item() <= 2.0 * sp,
+                  f"pose problem {b} differs by {per[b].item()}, the plain "
+                  f"version's own 1-ulp spread is {sp} ({name})")
+        check(len(flipped) <= max(1, B // 50),
+              f"{len(flipped)} of {B} problems flipped ({name})")
+        check(single_same, f"batched launch differs from single ({name})")
+        check(agree > 0.99, f"inlier agreement {agree} ({name})")
+        check(dcnt <= max(3, N // 100), f"inlier counts differ by {dcnt}")
+
+
+def loop_cpu_gpu_phase(dev) -> None:
+    """The drifted ring closed on the CPU and on the card; then the
+    card's pose-graph solve and Sim3 RANSAC of that closure rerun under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    base, s, _, _ = LP.build_ring()
+    new_side, truth = LP.drift_newest(base)
+    voc = SLAM.load_vocabulary(s)
+    out = {}
+    for d in ("cpu", dev):
+        m = LP.clone_map(base)
+        lc = LC.LoopClosing(s, m, KeyframeDatabase(voc, m), d,
+                            gba=GBA.GlobalBA(s, m, d))
+        for k in m.valid_keyframes():
+            lc.db.add(int(k))
+        with Probe(LC, "solve_pgo", keep=True) as pgo, \
+                Probe(LC, "sim3_ransac") as rs:
+            t0 = time.perf_counter()
+            for k in new_side:
+                lc.process(k)
+            if d != "cpu":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        out[str(d)] = (lc, m, pgo, rs, ms)
+    (lcc, mc, _, _, ms_c), (lcg, mg, pgo, rs, ms_g) = out["cpu"], out[str(dev)]
+    kfs = mc.valid_keyframes()
+    cc = np.linalg.inv(mc.kf_pose[kfs])[:, :3, 3]
+    cg = np.linalg.inv(mg.kf_pose[kfs])[:, :3, 3]
+    diff = float(np.linalg.norm(cc - cg, axis=1).max())
+    drift_err = max(float(np.linalg.norm(
+        np.linalg.inv(mg.kf_pose[k])[:3, 3] - np.linalg.inv(truth[k])[:3, 3]))
+        for k in new_side)
+    # the closure's PGO and RANSAC again, with any host sync an error
+    (graph,), pgo_kw = pgo.args
+    (src, dst, mask, _), rs_kw = rs.args[0][:4], rs.args[1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(s.random_seed + 7)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = [PGO.solve_pgo(graph, **pgo_kw) for _ in range(2)]
+        SIM3.sim3_ransac(src, dst, mask, gen, **rs_kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for a in again for x, y in zip(a, pgo.out[0]))
+    pgo_ms = time_calls_us(lambda: PGO.solve_pgo(graph, **pgo_kw), n=5,
+                           warmup=1) / 1e3
+    phase("loop_cpu_vs_gpu", keyframes=int(len(kfs)),
+          vertices=int(graph.poses.shape[0]),
+          edges=int(graph.edge_i.shape[0]),
+          loops_cpu=lcc.n_loops_closed, loops_gpu=lcg.n_loops_closed,
+          max_centre_diff_m=diff, max_drift_error_m=drift_err,
+          process_ms_cpu=ms_c, process_ms_gpu=ms_g, pgo_ms=pgo_ms,
+          pgo_rerun_bit_identical=same)
+    check(lcg.n_loops_closed == lcc.n_loops_closed >= 1,
+          f"loops closed: GPU {lcg.n_loops_closed}, CPU {lcc.n_loops_closed}")
+    check(np.array_equal(mg.valid_keyframes(), kfs),
+          "CPU and GPU keep different keyframes")
+    check(diff <= RING_CENTRE_ATOL, f"keyframe centres differ by {diff} m")
+    check(drift_err < 0.05, f"drifted keyframes left {drift_err} m off")
+    check(same, "solve_pgo reruns not bit-identical on the card")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -836,14 +1169,18 @@ def main() -> int:
     pixels_cpu_gpu_phase(dev, lane)
     ba_phase(dev)
     triangulation_phase(dev)
+    loop = loop_lane_phase(dev)
+    pose_batched_phase(dev, loop)
+    loop_cpu_gpu_phase(dev)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "pose_refine_fused",
         "route": "cuda",
         "source": "snakeslam_tpu_torch/csrc/pose_refine.cu",
         "replaces": "snakeslam_tpu/ops/pose_pallas.py:258",
-        # the smooth lane's and the pixels lane's runs, each counted alone
-        "launches": smooth_launches + pix["pose"],
+        # the smooth, pixels and loop lanes' runs, each counted alone (the
+        # loop lane's: tracking, loop verification and the realign)
+        "launches": smooth_launches + pix["pose"] + loop["launches"],
         **kern,
     }, {
         "name": "fast_score_batch",

@@ -1,16 +1,18 @@
-"""SO3 / SE3 Lie-group operations on batched tensors.
+"""SO3 / SE3 / Sim3 Lie-group operations on batched tensors.
 
 Counterpart of ``snakeslam_tpu/core/lie.py``.  Poses are homogeneous
-``(..., 4, 4)`` float tensors (world->camera), so composition is a matmul.
-Every function accepts arbitrary leading batch dimensions and keeps the
-formulas, Taylor cutoffs and branch selection of the JAX version, written
-with ``torch.where`` so nothing syncs the host.  (Sim3 comes with the loop
-back-end.)
+``(..., 4, 4)`` float tensors (world->camera), so composition is a matmul;
+a Sim3 is the same 4x4 with the scaled rotation ``s*R`` in the upper-left
+block.  Every function accepts arbitrary leading batch dimensions and keeps
+the formulas, Taylor cutoffs and branch selection of the JAX version,
+written with ``torch.where`` so nothing syncs the host.
 """
 
 from __future__ import annotations
 
 import torch
+
+from snakeslam_tpu_torch.ops.linalg import solve3x3
 
 _EPS = 1e-8
 
@@ -226,3 +228,98 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     return pts @ R.transpose(-1, -2) + t[..., None, :]
+
+
+# ---------------------------------------------------------------------------
+# Sim3 — (..., 4, 4) with sR in the upper-left block
+# ---------------------------------------------------------------------------
+
+def sim3(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    s = torch.as_tensor(s, dtype=R.dtype, device=R.device)
+    return se3(R * s[..., None, None], t)
+
+
+def sim3_scale(S: torch.Tensor) -> torch.Tensor:
+    """Scale from the sR block (the norm of its first row)."""
+    return torch.linalg.norm(S[..., 0, :3], dim=-1)
+
+
+def sim3_rotation(S: torch.Tensor) -> torch.Tensor:
+    return S[..., :3, :3] / sim3_scale(S)[..., None, None]
+
+
+def sim3_inverse(S: torch.Tensor) -> torch.Tensor:
+    s = sim3_scale(S)
+    R = S[..., :3, :3] / s[..., None, None]
+    t = S[..., :3, 3]
+    Rt = R.transpose(-1, -2)
+    sinv = 1.0 / s
+    return sim3(sinv, Rt, -(sinv[..., None] * (Rt @ t[..., None])[..., 0]))
+
+
+def _sim3_W_coeffs(sigma: torch.Tensor, theta: torch.Tensor):
+    """Coefficients (a, b, c) of the Sim3 W-matrix
+    Wm = a I + b hat(w) + c hat(w)^2 (Strasdat's Sim3 exponential), with
+    the small-sigma and small-angle branches as ``torch.where`` guards."""
+    s = torch.exp(sigma)
+    eps = 1e-5
+    one = torch.ones_like(sigma)
+    sig_small = torch.abs(sigma) < eps
+    sig_safe = torch.where(sig_small, one, sigma)
+    a = torch.where(sig_small, 1.0 + sigma / 2.0 + sigma * sigma / 6.0,
+                    (s - 1.0) / sig_safe)
+
+    th_small = theta < eps
+    th = torch.where(th_small, torch.ones_like(theta), theta)
+    th2 = th * th
+    denom = sigma * sigma + th2
+    denom = torch.where(denom < 1e-12, torch.ones_like(denom), denom)
+    c_cos = s * torch.cos(th)
+    c_sin = s * torch.sin(th)
+    b_gen = (sigma * c_sin + (1.0 - c_cos) * th) / (th * denom)
+    c_gen = (a - ((c_cos - 1.0) * sigma + c_sin * th) / denom) / th2
+
+    b_th0 = torch.where(sig_small, 0.5 + sigma / 3.0,
+                        (sigma * s - s + 1.0) / (sig_safe * sig_safe))
+    c_th0 = torch.where(
+        sig_small, 1.0 / 6.0 + sigma / 8.0,
+        ((0.5 * sigma * sigma - sigma + 1.0) * s - 1.0
+         - 0.5 * sigma * sigma) / (sig_safe ** 3))
+    b = torch.where(th_small, b_th0, b_gen)
+    c = torch.where(th_small, c_th0, c_gen)
+    return a, b, c
+
+
+def _sim3_W(w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    a, b, c = _sim3_W_coeffs(sigma, safe_norm(w))
+    W = hat(w)
+    return (a[..., None, None] * _eye3_like(W) + b[..., None, None] * W
+            + c[..., None, None] * (W @ W))
+
+
+def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """Sim3 tangent (..., 7) = (v[3], w[3], sigma) -> (..., 4, 4) with sR."""
+    v = xi[..., :3]
+    w = xi[..., 3:6]
+    sigma = xi[..., 6]
+    t = (_sim3_W(w, sigma) @ v[..., None])[..., 0]
+    return sim3(torch.exp(sigma), so3_exp(w), t)
+
+
+def sim3_log(S: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) Sim3 -> tangent (..., 7) = (v, w, sigma)."""
+    sigma = torch.log(sim3_scale(S))
+    w = so3_log(sim3_rotation(S))
+    # the closed-form 3x3 solve: a solver library call can check its
+    # result on the host
+    v = solve3x3(_sim3_W(w, sigma), S[..., :3, 3])
+    return torch.cat([v, w, sigma[..., None]], dim=-1)
+
+
+def se3_to_sim3(T: torch.Tensor) -> torch.Tensor:
+    return T
+
+
+def sim3_to_se3(S: torch.Tensor) -> torch.Tensor:
+    """Drop the scale (keep rotation + translation)."""
+    return se3(sim3_rotation(S), S[..., :3, 3])

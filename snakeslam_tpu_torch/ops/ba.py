@@ -57,10 +57,10 @@ class BAProblem(NamedTuple):
 def problem_to_device(cam_pose, cam_fixed, cam_valid, points, point_valid,
                       obs_cam, obs_uv, obs_right, obs_weight, obs_valid,
                       rpc_i, rpc_j, rpc_T, rpc_weight, rpc_valid,
-                      device) -> BAProblem:
-    """Host numpy arrays -> a BAProblem on ``device`` (float fields f32,
-    slots int32, flags bool)."""
-    f32, i32 = np.float32, np.int32
+                      device, float_dtype=np.float32) -> BAProblem:
+    """Host numpy arrays -> a BAProblem on ``device`` (float fields of
+    ``float_dtype``, slots int32, flags bool)."""
+    f32, i32 = float_dtype, np.int32
     return BAProblem(
         cam_pose=upload(np.asarray(cam_pose, f32), device),
         cam_fixed=upload(np.asarray(cam_fixed, bool), device),
@@ -379,9 +379,16 @@ def solve_point_only(
     huber_stereo: float = 2.3,
 ):
     """Point-only BA (cameras constant): independent per-point 3x3 GN
-    solves, fully batched."""
-    eye3 = torch.eye(3, dtype=problem.points.dtype,
-                     device=problem.points.device)
+    solves, fully batched.
+
+    Each point's normal equations are formed and solved in float64 from
+    the float32 residuals and Jacobians.  A point seen once, mono, has a
+    rank-2 system held only by the 1e-6 damping; in float32 the rounding
+    of its gradient, divided by that damping, moves it metres along its
+    viewing ray (one such point reached 1.5e26 m and turned the next full
+    BA to NaN).  The JAX package keeps float32 here."""
+    f64 = torch.float64
+    eye3 = torch.eye(3, dtype=f64, device=problem.points.device)
     points = problem.points
     for _ in range(iterations):
         r, _, B, valid, has_stereo = _point_residuals(
@@ -391,9 +398,10 @@ def solve_point_only(
         e = torch.sqrt(chi2 + 1e-12)
         huber = torch.clamp(delta_h / e, max=1.0)
         w = torch.where(valid, problem.obs_weight**2 * huber, 0.0)
-        Hpp = torch.einsum("pmki,pm,pmkj->pij", B, w, B) + 1e-6 * eye3
-        g_p = torch.einsum("pmki,pm,pmk->pi", B, w, r)
-        delta = -solve3x3(Hpp, g_p)
+        B64, w64 = B.to(f64), w.to(f64)
+        Hpp = torch.einsum("pmki,pm,pmkj->pij", B64, w64, B64) + 1e-6 * eye3
+        g_p = torch.einsum("pmki,pm,pmk->pi", B64, w64, r.to(f64))
+        delta = -solve3x3(Hpp, g_p).to(points.dtype)
         has_obs = torch.sum(w, dim=1) > 0
         points = torch.where((problem.point_valid & has_obs)[:, None],
                              points + delta, points)

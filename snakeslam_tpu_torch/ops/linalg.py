@@ -58,6 +58,56 @@ def solve6x6_psd(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.cat([x1, x2], dim=-1)
 
 
+JACOBI_SWEEPS = 8
+
+
+def svd3x3(A: torch.Tensor):
+    """SVD of (..., 3, 3) matrices by one-sided (Hestenes) Jacobi: fixed
+    sweeps of plane rotations orthogonalize the columns of A V, which then
+    are U diag(sigma).  Plain elementwise arithmetic with fixed trip
+    counts: unlike a solver library call, nothing checks a result on the
+    host.  Eight sweeps reach float64 precision on a 3x3 (convergence is
+    quadratic).
+
+    Returns (U, sigma, Vt) with sigma in descending order.  U's third
+    column is u1 x u2, so det(U) = +1, and sigma[..., 2] = u3 . (A v3) is
+    signed: U diag(sigma) Vt = A, and a rank-deficient A (a minimal
+    three-point sample) still gets a right-handed U."""
+    AV = A.clone()
+    V = torch.eye(3, dtype=A.dtype, device=A.device).expand(A.shape).clone()
+    tiny = torch.finfo(A.dtype).tiny
+    for _ in range(JACOBI_SWEEPS):
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            ap, aq = AV[..., :, p], AV[..., :, q]
+            alpha = torch.sum(ap * ap, dim=-1)
+            beta = torch.sum(aq * aq, dim=-1)
+            gamma = torch.sum(ap * aq, dim=-1)
+            off = torch.abs(gamma) > tiny
+            zeta = (beta - alpha) / (2.0 * torch.where(
+                off, gamma, torch.ones_like(gamma)))
+            sgn = torch.where(zeta >= 0, 1.0, -1.0).to(A.dtype)
+            t = sgn / (torch.abs(zeta) + torch.sqrt(1.0 + zeta * zeta))
+            t = torch.where(off, t, torch.zeros_like(t))
+            c = torch.rsqrt(1.0 + t * t)
+            s = c * t
+            for M in (AV, V):
+                mp, mq = M[..., :, p].clone(), M[..., :, q]
+                M[..., :, p] = c[..., None] * mp - s[..., None] * mq
+                M[..., :, q] = s[..., None] * mp + c[..., None] * mq
+    sig = torch.linalg.norm(AV, dim=-2)                       # (..., 3)
+    order = torch.argsort(-sig, dim=-1)
+    col = order[..., None, :].expand(A.shape)
+    AV = torch.gather(AV, -1, col)
+    V = torch.gather(V, -1, col)
+    sig = torch.gather(sig, -1, order)
+    u1 = AV[..., :, 0] / torch.clamp(sig[..., 0:1], min=tiny)
+    u2 = AV[..., :, 1] / torch.clamp(sig[..., 1:2], min=tiny)
+    u3 = torch.linalg.cross(u1, u2, dim=-1)
+    s3 = torch.sum(u3 * AV[..., :, 2], dim=-1)
+    U = torch.stack([u1, u2, u3], dim=-1)
+    return U, torch.stack([sig[..., 0], sig[..., 1], s3], dim=-1), V.mT
+
+
 def solve_psd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b for symmetric positive-definite A via Cholesky.
 

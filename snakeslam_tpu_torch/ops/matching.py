@@ -330,6 +330,42 @@ def knn2_ratio_match(bits_a, bits_b, valid_a, valid_b, ratio: float = 0.8,
             torch.where(ok, best, INVALID_DIST).to(torch.int32))
 
 
+def knn2_ratio_match_packed_np(packed_a: np.ndarray, packed_b: np.ndarray,
+                               ratio: float = 0.8, max_dist: int = TH_LOW,
+                               cross_check: bool = True):
+    """Host 2-NN Hamming matching on packed (n, 32) uint8 descriptors via
+    the hardware popcount (``np.bitwise_count`` over 4 uint64 lanes): loop
+    detection matches one (keyframe, candidate) pair of a few hundred
+    points per call, which costs ~2 ms on the host.  Same contract as
+    ``knn2_ratio_match_np``: returns (idx into b or -1, best distance)."""
+    na, nb = len(packed_a), len(packed_b)
+    if na == 0 or nb == 0:
+        return (np.full(na, -1, dtype=np.int32),
+                np.full(na, INVALID_DIST, dtype=np.int32))
+    a64 = np.ascontiguousarray(packed_a).view(np.uint64)   # (na, 4)
+    b64 = np.ascontiguousarray(packed_b).view(np.uint64)   # (nb, 4)
+    dist = np.bitwise_count(
+        a64[:, None, :] ^ b64[None, :, :]
+    ).sum(axis=-1).astype(np.int32)                        # (na, nb)
+    ar = np.arange(na)
+    j1 = dist.argmin(axis=1).astype(np.int32)
+    d1 = dist[ar, j1]
+    if cross_check:
+        rev = dist.argmin(axis=0).astype(np.int32)         # best a per b
+    if nb > 1:
+        saved = d1.copy()
+        dist[ar, j1] = INVALID_DIST
+        d2 = dist.min(axis=1)
+        dist[ar, j1] = saved
+    else:
+        d2 = np.full(na, INVALID_DIST, dtype=np.int32)
+    ok = (d1 <= max_dist) & (d1.astype(np.float32) <= ratio * d2)
+    if cross_check:
+        ok &= rev[j1] == ar
+    idx = np.where(ok, j1, -1).astype(np.int32)
+    return idx, d1
+
+
 def knn2_ratio_match_np(bits_a, bits_b, ratio: float = 0.8,
                         max_dist: int = TH_LOW, cross_check: bool = True,
                         device=None):

@@ -1,18 +1,22 @@
-"""SlamSystem: module construction, per-frame entry, trajectories, ATE.
+"""SlamSystem: module construction, the run loop, end-of-run passes,
+trajectories, ATE.
 
 Counterpart of ``snakeslam_tpu/system/slam.py`` for stereo / RGB-D input on
-one ``device``: the map, the tracker, the local mapper with its keyframe
-cycle (triangulation, neighbour fusion, local BA) and the keyframe-
-reduction back-ends behind delayed queues (simplification, delay 8; the
-deferred mapper, delay 9), built as the JAX package builds them.  The BoW
-vocabulary, keyframe database, loop closing and relocalization arrive with
-the system glue of ROADMAP.md queue A, step 9, and so do ``run`` and
-``finalize`` (global BA).  Driven as
-``WindowedRunner(SlamSystem(settings, device), window).run(frames)``.
+one ``device``: the map, the BoW vocabulary and keyframe database, loop
+closing (with its own global BA) and relocalization, the tracker, the local
+mapper with its keyframe cycle (triangulation, neighbour fusion, local BA)
+and, behind it, loop closing first and then the keyframe-reduction
+back-ends behind delayed queues (simplification, delay 8; the deferred
+mapper, delay 9), built as the JAX package builds them.  ``run`` drives a
+frame iterable frame by frame and ends in ``finalize`` (the end-of-run
+mitigation, global BA passes, outlier removal, rematch and realign); the
+fast path is ``WindowedRunner(SlamSystem(settings, device), window).run(
+frames)`` followed by ``finalize()``.
 """
 
 from __future__ import annotations
 
+import time
 from pathlib import Path
 
 import numpy as np
@@ -20,9 +24,14 @@ import torch
 
 from snakeslam_tpu_torch.core import lie
 from snakeslam_tpu_torch.core import trajectory as traj
+from snakeslam_tpu_torch.loop.keyframe_database import KeyframeDatabase
+from snakeslam_tpu_torch.loop.loop_closing import LoopClosing
+from snakeslam_tpu_torch.loop.relocalization import Relocalizer
 from snakeslam_tpu_torch.map.slam_map import FrameData, SlamMap
 from snakeslam_tpu_torch.mapping.local_mapping import LocalMapper
+from snakeslam_tpu_torch.ops import bow as BOW
 from snakeslam_tpu_torch.optim.deferred_mapper import DeferredMapper
+from snakeslam_tpu_torch.optim.gba import GlobalBA
 from snakeslam_tpu_torch.optim.lba import LocalBA
 from snakeslam_tpu_torch.optim.simplification import Simplification
 from snakeslam_tpu_torch.system.queues import DelayedQueue
@@ -44,6 +53,21 @@ def _check_settings(s: Settings):
         if bad:
             raise NotImplementedError(
                 f"SlamSystem: {what} is not ported yet ({step})")
+
+
+def load_vocabulary(settings: Settings) -> BOW.Vocabulary:
+    """The configured vocabulary file, else the shipped one (trained on ORB
+    descriptors of rendered synthetic scenes), else one trained on random
+    bits."""
+    voc_path = Path(settings.voc_file)
+    if not voc_path.exists():
+        shipped = (Path(__file__).resolve().parent.parent / "data"
+                   / "orbvoc_synth.npz")
+        if shipped.exists():
+            voc_path = shipped
+    if voc_path.exists() and voc_path.suffix == ".npz":
+        return BOW.load_vocabulary_cached(voc_path)
+    return BOW.random_vocabulary_cached(settings.random_seed)
 
 
 def _quat(R: np.ndarray) -> np.ndarray:
@@ -71,6 +95,15 @@ class SlamSystem:
                            settings.feature_slots)
         self.lba = LocalBA(settings, self.map, self.device)
 
+        # BoW vocabulary + keyframe database + loop closing + relocalization
+        self.vocabulary = load_vocabulary(settings)
+        self.database = KeyframeDatabase(self.vocabulary, self.map)
+        self.loop_closing = LoopClosing(
+            settings, self.map, self.database, self.device,
+            gba=GlobalBA(settings, self.map, self.device))
+        self.relocalizer = Relocalizer(settings, self.map, self.database,
+                                       self.device)
+
         # simplification + deferred mapping behind delayed queues
         # (reference delays: simplification 8, deferred mapper 9)
         self.simplification = Simplification(settings, self.map)
@@ -82,13 +115,15 @@ class SlamSystem:
 
         self.local_mapper = LocalMapper(
             settings, self.map, self.device, lba=self.lba,
-            backends=[_QueueBackend(self._simp_queue),
+            backends=[self.loop_closing,
+                      _QueueBackend(self._simp_queue),
                       _QueueBackend(self._deferred_queue)],
         )
         self.deferred_mapper.map_searcher = self.local_mapper.map_searcher
         self.deferred_mapper.local_mapper = self.local_mapper
         self.tracker = Tracker(settings, self.map, self.device,
-                               local_mapper=self.local_mapper)
+                               local_mapper=self.local_mapper,
+                               relocalizer=self.relocalizer)
         self.stats = PerformanceStats()
         self.n_frames = 0
 
@@ -99,16 +134,82 @@ class SlamSystem:
         self.n_frames += 1
         return st
 
-    def run(self, frames):
-        raise NotImplementedError(
-            "SlamSystem.run: the dataset loop ends in the global BA passes, "
-            "ported with the system glue (ROADMAP.md queue A, step 9); "
-            "drive the slice with WindowedRunner(system, window).run(frames)")
+    def run(self, frames) -> float:
+        """Drive a frame iterable through the pipeline frame by frame, then
+        ``finalize``.  Returns the wall time of the frames, in seconds
+        (finalize excluded)."""
+        t0 = time.perf_counter()
+        for frame in frames:
+            self.process_frame(frame)
+        wall = time.perf_counter() - t0
+        self.finalize()
+        return wall
 
-    def finalize(self, gba_iterations: int = 5, vi_alternations: int = 10):
-        raise NotImplementedError(
-            "SlamSystem.finalize: global BA is ported with the system glue "
-            "(ROADMAP.md queue A, step 9)")
+    def finalize(self, gba_iterations: int = 5):
+        """End-of-run passes (System.cpp:167-215): the trailing-section
+        mitigation, the delayed queues drained, full BA twice, outlier
+        removal, full BA, then realign / rematch / realign of the tracked
+        non-keyframe frames against the final map."""
+        smap = self.map
+        # end-of-run bad-section mitigation: the trailing ~30 frames never
+        # received the usual back-end polish, so their keyframes' culling
+        # bias goes past the force threshold and simplification sees them
+        # before the final BA passes
+        valid = smap.valid_keyframes()
+        if len(valid):
+            last_fid = int(smap.kf_frame_id[valid].max())
+            # only when a non-trailing backbone remains: in a short run
+            # every keyframe is trailing, and force-culling them all would
+            # gut the map
+            n_backbone = int((smap.kf_frame_id[valid]
+                              <= last_fid - 30).sum())
+            kf = valid[np.argmax(smap.kf_frame_id[valid])]
+            while (n_backbone >= 3 and kf >= 0
+                   and smap.kf_frame_id[kf] > last_fid - 30):
+                smap.kf_cull_factor[kf] = 5.0
+                self._simp_queue.add(int(kf))
+                kf = int(smap.kf_prev[kf])
+
+        # drain the delayed back-end queues (ForceCleanQueue)
+        self._simp_queue.force_clean()
+        self._deferred_queue.force_clean()
+        if smap.n_keyframes >= 2:
+            gba = GlobalBA(self.s, smap, self.device)
+            gba.full_ba(iterations=gba_iterations)
+            gba.full_ba(iterations=gba_iterations)
+            gba.remove_outliers()
+            gba.full_ba(iterations=gba_iterations)
+            # RealignIntermiediateFrames x2 around RematchIntermiediate
+            traj_frames = self.tracker.trajectory
+            gba.realign_intermediate_frames(traj_frames)
+            gba.rematch_intermediate(traj_frames)
+            gba.realign_intermediate_frames(traj_frames)
+
+    def map_statistics(self) -> str:
+        """End-of-run map statistics table: ATE RMSE Sim3/SE3, scale error,
+        reprojection RMSE, observation density."""
+        smap = self.map
+        rmse_sim3, scale, n = self.ate_against_gt(with_scale=True)
+        rmse_se3, _, _ = self.ate_against_gt(with_scale=False)
+        n_obs = int(smap.pt_n_obs[smap.valid_points()].sum())
+        n_kf = max(smap.n_keyframes, 1)
+        n_pt = max(smap.n_points, 1)
+        reproj = smap.reprojection_stats(self.s.fx, self.s.fy,
+                                         self.s.cx, self.s.cy)
+        lines = [
+            f"{'Keyframes':<24}{smap.n_keyframes:>12}",
+            f"{'Map points':<24}{smap.n_points:>12}",
+            f"{'Observations':<24}{n_obs:>12}",
+            f"{'Obs / keyframe':<24}{n_obs / n_kf:>12.1f}",
+            f"{'Obs / point':<24}{n_obs / n_pt:>12.2f}",
+            f"{'Reprojection RMSE (px)':<24}{reproj:>12.3f}",
+        ]
+        if n:
+            lines.append(f"{'ATE RMSE Sim3 (m)':<24}{rmse_sim3:>12.4f}")
+            lines.append(f"{'ATE RMSE SE3 (m)':<24}{rmse_se3:>12.4f}")
+            lines.append(
+                f"{'Scale error (%)':<24}{abs(1 - scale) * 100:>12.2f}")
+        return "\n".join(lines)
 
     # ------------------------------------------------------------------
     # trajectory export (TUM format)

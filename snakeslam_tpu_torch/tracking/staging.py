@@ -2,7 +2,7 @@
 result copies back to the host.
 
 Counterpart of ``snakeslam_tpu/tracking/staging.py`` (``pad_frame_features``,
-``kf_features_cached``; point snapshots come with loop closing).  On a CUDA
+``kf_features_cached``, ``snapshot_points``).  On a CUDA
 device, uploads go through pinned memory with non-blocking copies and
 results come back into pinned tensors behind a recorded CUDA event, so
 neither direction makes the host wait for device work already queued.
@@ -15,35 +15,44 @@ import torch
 
 from snakeslam_tpu_torch.map.slam_map import FrameData, SlamMap
 from snakeslam_tpu_torch.ops.descriptors import unpack_bits
-from snakeslam_tpu_torch.ops.matching import FrameFeatures
+from snakeslam_tpu_torch.ops.matching import FrameFeatures, LocalMapPoints
 
 F32 = np.float32
 
 
+def pad_frames_features(frames: list[FrameData], n_slots: int,
+                        device) -> FrameFeatures:
+    """Frames padded to ``n_slots`` feature slots and stacked on a leading
+    batch dim on ``device``, packed on the host and uploaded once per
+    field; descriptors travel packed (32 B) and expand to bit planes on
+    the device."""
+    B = len(frames)
+    uv = np.zeros((B, n_slots, 2), dtype=F32)
+    right = np.full((B, n_slots), -1.0, dtype=F32)
+    octave = np.zeros((B, n_slots), dtype=np.int32)
+    angle = np.zeros((B, n_slots), dtype=F32)
+    desc = np.zeros((B, n_slots, 32), dtype=np.uint8)
+    valid = np.zeros((B, n_slots), dtype=bool)
+    for b, f in enumerate(frames):
+        n = min(f.n, n_slots)
+        uv[b, :n] = f.uv[:n]
+        right[b, :n] = f.right[:n]
+        octave[b, :n] = f.octave[:n]
+        angle[b, :n] = f.angle[:n]
+        desc[b, :n] = f.descriptors[:n]
+        valid[b, :n] = True
+    return FrameFeatures(
+        uv=upload(uv, device), right=upload(right, device),
+        octave=upload(octave, device), angle=upload(angle, device),
+        desc_bits=unpack_bits(upload(desc, device)).to(torch.int8),
+        valid=upload(valid, device))
+
+
 def pad_frame_features(frame: FrameData, n_slots: int,
                        device) -> FrameFeatures:
-    """Pad a frame to ``n_slots`` feature slots on ``device``; descriptors
-    travel packed (32 B) and expand to bit planes on the device."""
-    n = min(frame.n, n_slots)
-    uv = np.zeros((n_slots, 2), dtype=F32)
-    right = np.full(n_slots, -1.0, dtype=F32)
-    octave = np.zeros(n_slots, dtype=np.int32)
-    angle = np.zeros(n_slots, dtype=F32)
-    desc = np.zeros((n_slots, 32), dtype=np.uint8)
-    uv[:n] = frame.uv[:n]
-    right[:n] = frame.right[:n]
-    octave[:n] = frame.octave[:n]
-    angle[:n] = frame.angle[:n]
-    desc[:n] = frame.descriptors[:n]
-    valid = np.arange(n_slots) < n
-
-    def up(a):
-        return torch.from_numpy(a).to(device)
-
-    return FrameFeatures(
-        uv=up(uv), right=up(right), octave=up(octave), angle=up(angle),
-        desc_bits=unpack_bits(up(desc)).to(torch.int8), valid=up(valid),
-    )
+    """One frame padded to ``n_slots`` feature slots on ``device``."""
+    return FrameFeatures(*(t[0] for t in pad_frames_features(
+        [frame], n_slots, device)))
 
 
 def upload(a: np.ndarray, device) -> torch.Tensor:
@@ -80,6 +89,34 @@ class HostCopy:
         if self.event is not None:
             self.event.synchronize()
         return [h.numpy() for h in self.host]
+
+
+def snapshot_points(smap: SlamMap, point_ids: np.ndarray, n_slots: int,
+                    device):
+    """A LocalMapPoints snapshot of ``point_ids`` on ``device``, gathered
+    on the host from the map's arrays (loop verification snapshots the
+    candidate keyframe's points this way).
+
+    Returns (LocalMapPoints, ids used (int64, <= n_slots))."""
+    ids = np.asarray(point_ids[:n_slots], dtype=np.int64)
+    n = len(ids)
+    pos = np.zeros((n_slots, 3), dtype=F32)
+    normal = np.zeros((n_slots, 3), dtype=F32)
+    bits = np.zeros((n_slots, 256), dtype=np.int8)
+    ref_depth = np.ones(n_slots, dtype=F32)
+    ref_level = np.zeros(n_slots, dtype=np.int32)
+    pos[:n] = smap.pt_pos[ids]
+    normal[:n] = smap.pt_normal[ids]
+    bits[:n] = smap.pt_bits[ids]
+    ref_depth[:n] = smap.pt_ref_depth[ids]
+    ref_level[:n] = smap.pt_ref_level[ids]
+    lm = LocalMapPoints(
+        position=upload(pos, device), normal=upload(normal, device),
+        desc_bits=upload(bits, device), ref_depth=upload(ref_depth, device),
+        ref_level=upload(ref_level, device),
+        angle=upload(np.zeros(n_slots, dtype=F32), device),
+        valid=upload(np.arange(n_slots) < n, device))
+    return lm, ids
 
 
 def kf_features_cached(smap: SlamMap, kf: int, n_slots: int,

@@ -4,8 +4,9 @@ Counterpart of ``snakeslam_tpu/tracking/tracker.py`` for stereo and RGB-D
 input: states NOT_INITIALIZED / OK / RECOVERING / LOST, single-frame depth
 initialization, constant-velocity prediction, the coarse -> fine per-frame
 pipeline (models/tracking_step.py), brute-force recovery (knn + PnP RANSAC),
-the keyframe decision and the lost-tracking policy.  Monocular
-initialization and IMU prediction raise NotImplementedError.
+BoW relocalization once LOST, the keyframe decision and the lost-tracking
+policy.  Monocular initialization and IMU prediction raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ def _scalar(v, device) -> torch.Tensor:
 
 class Tracker:
     def __init__(self, settings: Settings, smap: SlamMap, device,
-                 local_mapper=None):
+                 local_mapper=None, relocalizer=None):
         if settings.input_type == InputType.Mono:
             raise NotImplementedError(
                 "Tracker: monocular initialization is ported with the mono "
@@ -59,6 +60,7 @@ class Tracker:
         self.map = smap
         self.device = torch.device(device)
         self.local_mapper = local_mapper
+        self.relocalizer = relocalizer
         self.state = TrackingState.NOT_INITIALIZED
         self.pyramid = ScalePyramid.create(settings.fd_levels,
                                            settings.fd_scale_factor)
@@ -98,6 +100,19 @@ class Tracker:
 
     def process_frame(self, frame: FrameData) -> TrackStats:
         stats = TrackStats(state=self.state)
+        if (self.state == TrackingState.LOST
+                and self.relocalizer is not None
+                and self.relocalizer.try_relocalize(frame)):
+            # BoW relocalization (TrackingCoarse.cpp:514-539)
+            self.state = TrackingState.OK
+            self.recover_frames = 0
+            self.velocity = np.eye(4)
+            self.last_kf = frame.ref_kf
+            self.last_tracked_frame = frame
+            self.last_frame = frame
+            self.trajectory.append(frame)
+            stats.state = self.state
+            return stats
         if self.state == TrackingState.NOT_INITIALIZED:
             ok = self._initialize(frame)
             if ok:

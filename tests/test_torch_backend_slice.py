@@ -4,10 +4,9 @@ JAX package.
 Both packages run tests/test_torch_slice.py's dense-keyframe configuration
 (1500-point world, seed 7, 48 frames, timestamp = frame_id / 10,
 feature_slots 512, window 8) with every back-end of the keyframe cycle —
-triangulation, neighbour fusion, local BA, simplification (delay 8) and
-the deferred mapper (delay 9) — and the JAX package's loop-closing
-back-end removed (the port has none yet), its runner pinned to the
-port's one-window-per-fetch schedule (see tests/test_torch_slice.py).
+triangulation, neighbour fusion, local BA, loop closing, simplification
+(delay 8) and the deferred mapper (delay 9) — the JAX runner pinned to
+the port's one-window-per-fetch schedule (see tests/test_torch_slice.py).
 
 Tolerances: tracked, keyframe and LBA run counts equal; map points within
 2%; ATE within 10% of the JAX run; per-frame camera centres within 1 mm.
@@ -39,12 +38,7 @@ def _run(pkg):
                                                          orbit_trajectory)
     world = SyntheticWorld(n_points=1500, seed=7)
     s = _settings(Settings, InputType, world, apply_world_to_settings)
-    if pkg == "jax":
-        system = SlamSystem(s)
-        lm = system.local_mapper
-        lm.backends = [b for b in lm.backends if b is not system.loop_closing]
-    else:
-        system = SlamSystem(s, "cpu")
+    system = SlamSystem(s) if pkg == "jax" else SlamSystem(s, "cpu")
     frames = _frames(synthetic_frames, orbit_trajectory, world, s)
     with jax_one_window_per_fetch():   # the port's schedule; a no-op for it
         WindowedRunner(system, window=WINDOW).run(frames)
@@ -62,6 +56,8 @@ def test_counts(runs):
     assert len(port_sys.tracker.trajectory) == N_FRAMES
     assert port_sys.map.n_keyframes == jax_sys.map.n_keyframes
     assert port_sys.lba.n_runs == jax_sys.lba.n_runs > 0
+    assert (port_sys.loop_closing.n_loops_closed
+            == jax_sys.loop_closing.n_loops_closed)
     # the keyframe-reduction back-end ran: keyframes were culled
     assert (port_sys.simplification.n_culled
             == jax_sys.simplification.n_culled > 0)

@@ -20,7 +20,10 @@ boundaries.
 The keyframe back-end's ops (plain torch, no hand kernel) run on the card
 without a host sync (``torch.cuda.set_sync_debug_mode("error")``): the
 local BA's solve is bit-identical on a rerun and within 1e-4 of the CPU;
-pair triangulation's integer outputs equal the CPU's.
+pair triangulation's integer outputs equal the CPU's.  So do the loop
+closure's pose-graph solve (float64, within 1e-8 of the CPU, bit-identical
+rerun) and Sim3 RANSAC; the pose kernel takes the realign's batch of 320
+problems in one launch.
 """
 
 import numpy as np
@@ -400,3 +403,99 @@ def test_triangulate_pairs_on_the_card(cuda_device):
     err = (out["point"].cpu()[v] - ref["point"][v]).norm(dim=-1)
     close = err <= 1e-4 * ref["point"][v].norm(dim=-1)
     assert close.float().mean().item() >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# the system glue's callers of the pose kernel and device ops
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("iters", [(4, 3), (3, 3)])
+def test_kernel_large_batch(cuda_device, iters):
+    """B = 320 problems in one launch (the realign's batch, 4 x 3 GN
+    rounds; loop verification's 3 x 3): the batched launch equals single
+    launches bit for bit; against the plain version, inlier agreement and
+    counts as above, poses within 2e-4 where the two keep the same inlier
+    set.  Where a feature's chi2 sits on its threshold the two may classify
+    it apart and the later rounds then solve another problem: the plain
+    version alone moves such a pose by up to ~2e-2 under a 1-ulp change of
+    its inputs, so those problems (<= 2% of the batch) are counted, not
+    compared."""
+    outer, inner = iters
+    probs = [pose_problem(700 + k, 1024, k % 3 != 0, cuda_device)[0]
+             for k in range(320)]
+    args = _stack(probs)
+    kw = dict(outer_iters=outer, inner_iters=inner)
+    launches = PF.LAUNCHES
+    T, inl, n = PF.pose_refine_fused(*args, **kw)
+    assert PF.LAUNCHES == launches + 1
+    T2, _, _ = PF.pose_refine_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(T, T2), "reruns must be bit-identical"
+    for k in (0, 157, 319):
+        Tk, ik, nk = PF.pose_refine_fused(*probs[k], **kw)
+        assert torch.equal(Tk, T[k]) and torch.equal(ik, inl[k])
+        assert int(nk) == int(n[k])
+    Tr, ir, nr = PF.pose_refine_fused_reference(*args, **kw)
+    assert (inl == ir).float().mean().item() > 0.99
+    assert ((n - nr).abs() <= torch.clamp(nr // 100, min=3)).all()
+    err = (T - Tr).abs().amax(dim=(1, 2))
+    same = (inl == ir).all(dim=-1)
+    assert err[same].max().item() <= 2e-4
+    assert int((~same).sum()) <= 6
+
+
+def test_pgo_and_sim3_ransac_on_the_card(cuda_device):
+    """The loop closure's device solves: ``solve_pgo`` (float64) and
+    ``sim3_ransac`` with no host sync, the PGO bit-identical on a rerun
+    and within 1e-8 of the CPU; the RANSAC's polished Sim3 within 1e-4 of
+    the CPU's with the same inliers."""
+    from snakeslam_tpu_torch.core import lie
+    from snakeslam_tpu_torch.ops import pgo as PGO
+    from snakeslam_tpu_torch.ops import sim3_solver as SIM3
+
+    rng = np.random.default_rng(3)
+    V = 40
+    true = [lie.se3_exp(torch.tensor(np.r_[rng.normal(size=3) * 2,
+                                           rng.normal(size=3) * 0.3]))
+            for _ in range(V)]
+    poses = torch.stack([lie.se3_exp(torch.tensor(
+        rng.normal(size=6) * 0.01)) @ T for T in true])
+    ei = np.r_[np.arange(V - 1), 0, 5]
+    ej = np.r_[np.arange(1, V), V - 1, 30]
+    eT = torch.stack([true[j] @ torch.linalg.inv(true[i])
+                      for i, j in zip(ei, ej)])
+    fixed = torch.zeros(V, dtype=torch.bool)
+    fixed[0] = True
+    E = len(ei)
+    graph = PGO.PoseGraph(poses, fixed, torch.ones(V, dtype=torch.bool),
+                          torch.tensor(ei), torch.tensor(ej), eT,
+                          torch.ones(E, dtype=torch.float64),
+                          torch.ones(E, dtype=torch.bool))
+    g_dev = PGO.PoseGraph(*(t.to(cuda_device) for t in graph))
+    src = rng.uniform(-3, 3, size=(300, 3)) + [0, 0, 6]
+    R = lie.so3_exp(torch.tensor([0.1, -0.2, 0.3])).numpy()
+    dst = src @ R.T + [0.3, -0.1, 0.2] + rng.normal(size=src.shape) * 0.005
+    dst[:90] += rng.uniform(0.5, 2.0, size=(90, 3))
+    src32, dst32 = (torch.from_numpy(x.astype(np.float32))
+                    for x in (src, dst))
+    mask = torch.ones(300, dtype=torch.bool)
+    on_card = [t.to(cuda_device) for t in (src32, dst32, mask)]
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = PGO.solve_pgo(g_dev, iterations=25)
+        again = PGO.solve_pgo(g_dev, iterations=25)
+        rs = SIM3.sim3_ransac(*on_card, gen, threshold=0.05,
+                              with_scale=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])
+    ref = PGO.solve_pgo(graph, iterations=25)
+    np.testing.assert_allclose(out[0].cpu().numpy(), ref[0].numpy(),
+                               atol=1e-8)
+    rc = SIM3.sim3_ransac(src32, dst32, mask, torch.Generator().manual_seed(7),
+                          threshold=0.05, with_scale=False)
+    assert torch.equal(rs[3].cpu(), rc[3]) and int(rs[4]) >= 200
+    for a, b in zip(rs[:3], rc[:3]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)

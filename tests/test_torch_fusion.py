@@ -28,6 +28,7 @@ from snakeslam_tpu_torch.map import kf_pool as TPOOL
 from snakeslam_tpu_torch.map.slam_map import FrameData as TFrame
 from snakeslam_tpu_torch.map.slam_map import SlamMap as TMap
 from snakeslam_tpu_torch.tracking.staging import kf_features_cached
+from snakeslam_tpu_torch.utils.loop_problems import clone_map as _copy_map
 
 N_FRAMES = 16
 
@@ -121,20 +122,6 @@ def _port_settings(js):
     for k, v in vars(js).items():
         setattr(ts, k, v)
     return ts
-
-
-def _copy_map(jmap, cls):
-    """The JAX run's map state (numpy arrays, counters, free lists) in a
-    new map of class ``cls``."""
-    tmap = cls(jmap.max_keyframes, jmap.max_points, jmap.max_features)
-    for k, v in vars(jmap).items():
-        if isinstance(v, np.ndarray):
-            setattr(tmap, k, v.copy())
-        elif k in ("_next_kf", "_next_pt", "state"):
-            setattr(tmap, k, v)
-        elif k in ("_free_pts", "_free_kfs"):
-            setattr(tmap, k, list(v))
-    return tmap
 
 
 @pytest.fixture(scope="module")
