@@ -70,7 +70,32 @@ exits non-zero:
      keyframes split off and drifted (utils/loop_problems.py), closed with
      the global-BA polish on both devices; then the pose-graph solve and
      the Sim3 RANSAC of that closure rerun on the card without a host sync
-     (the PGO bit-identical).
+     (the PGO bit-identical);
+ 16. mono-VI lane: the JAX bench's mono_vi lane (6000-point world, seed 7,
+     240 frames of the excited orbit at 20 fps, monocular, IMU at 200 Hz
+     with gyro bias [0.01, -0.008, 0.012] and noise, 1024 feature slots,
+     2048 pinned local-map slots, LBA slots 32 / 8192 / 8) through
+     WindowedRunner (window 16, two-stage) on the card: monocular two-view
+     initialization, the gyro-bias and gravity / scale stages inside the
+     run, gyro-predicted windows through the pose kernel's mono rows, then
+     ``finalize()`` with the visual-inertial alternation; gated against the
+     JAX package's CPU run of the same lane (PERF.md);
+ 17. mono pose kernel: a coarse (1 x 3) and a fine (2 x 2) problem of a
+     tracked window after the visual-inertial initialization and the
+     realign batch of ``finalize()``, all mono rows (``right = -1``), on
+     the inputs the lane gave them, against the plain version,
+     bit-identical reruns, timed beside their bounds;
+ 18. IMU solvers: ``solve_scale_gravity`` and ``solve_imu_chain`` in
+     float64 at K = 16 and 64 keyframe slots on the CPU and on the card,
+     results within 1e-9, ms on both;
+ 19. mono-VI CPU against GPU: the small configuration that
+     tests/test_torch_mono_vi_slice.py runs (3000-point world, seed 5,
+     10 fps, window 8), 80 frames of it, on both devices with the same
+     RANSAC hypotheses.
+
+``--only a,b`` runs the build and then only the named phases of 13-19
+(``loop``, ``mono_vi``, ``vi_solvers``, ``mono_vi_cpu_gpu``) and prints no
+result line: for iterating on one lane.
 
 The line before the last is one JSON object with the kernels' names,
 routes, launch counts, errors, times (``ms`` per call, ``device_ms`` per
@@ -100,10 +125,13 @@ from snakeslam_tpu_torch.frontend.synthetic_source import (
     apply_world_to_settings,
     synthetic_frames,
 )
+from snakeslam_tpu_torch.imu import state_solver as VIS
 from snakeslam_tpu_torch.loop import loop_closing as LC
 from snakeslam_tpu_torch.loop.keyframe_database import KeyframeDatabase
 from snakeslam_tpu_torch.mapping import local_mapping as LM
+from snakeslam_tpu_torch.models import window_step as WS
 from snakeslam_tpu_torch.ops import ba as BA
+from snakeslam_tpu_torch.ops import imu as IMU
 from snakeslam_tpu_torch.ops import orb as ORB
 from snakeslam_tpu_torch.ops import orb_kernels as OK
 from snakeslam_tpu_torch.ops import pgo as PGO
@@ -114,11 +142,13 @@ from snakeslam_tpu_torch.system.settings import InputType, Settings
 from snakeslam_tpu_torch.ops.triangulate_pairs import triangulate_pairs_batch
 from snakeslam_tpu_torch.system import slam as SLAM
 from snakeslam_tpu_torch.system.slam import SlamSystem
+from snakeslam_tpu_torch.tracking import mono_init as MI
 from snakeslam_tpu_torch.tracking.staging import HostCopy
 from snakeslam_tpu_torch.tracking import windowed as WIN
 from snakeslam_tpu_torch.tracking.windowed import WindowedRunner
 from snakeslam_tpu_torch.utils import cuda_build
 from snakeslam_tpu_torch.utils import loop_problems as LP
+from snakeslam_tpu_torch.utils import vi_problems as VP
 from snakeslam_tpu_torch.utils.backend_problems import ba_problem, pair_problem
 from snakeslam_tpu_torch.utils.pose_problems import pose_problem
 from snakeslam_tpu_torch.utils.render_world import render_sequence
@@ -162,6 +192,31 @@ JAX_LOOP = dict(tracked=400, keyframes=81, points=6280,
                 ate_m=0.020929448906971324, loops_closed=1,
                 keyframes_final=71, ate_final_m=0.011153146451384117)
 POSE_BATCHED_ATOL = 1e-5  # batched pose kernel against its plain version
+# the mono rows of the pose refine (``right <= 0``: two residual rows, no
+# right-image row), counted as POSE_OPS_* are: residual ~30, Huber weight 5,
+# two Jacobian rows ~31, the 27 normal-equation terms over two rows 135
+POSE_OPS_PER_MONO_FEATURE_STEP = 201
+POSE_OPS_PER_MONO_FEATURE_RECLASS = 31
+# the JAX package's run of the mono-VI lane on the CPU with x64 on, one
+# window per fetch (scripts/jax_mono_vi_reference.py; PERF.md): the mono-VI
+# lane is gated against it, tracked within 2%, keyframes within 15%, Sim3
+# ATE within MONO_VI_ATE_FACTOR of it before and after finalize
+JAX_MONO_VI = dict(tracked=237, keyframes=20, points=2540,
+                   sim3_ate_m=0.008382250966750248,
+                   align_scale=1.0002830087818257,
+                   bg_err=0.00010931129880072978,
+                   landed=dict(mono_init=4, gyro=79, gravity=100),
+                   map_transforms=1, windows=17, keyframes_final=14,
+                   sim3_ate_final_m=0.0024404790072371646,
+                   align_scale_final=1.000703472064119)
+MONO_VI_ATE_FACTOR = 2.0
+VI_SOLVER_ATOL = 1e-9     # the IMU solvers on the card against the CPU
+# mono-VI CPU against GPU (80 frames of the small configuration)
+MONO_VI_SMALL_FRAMES = 80
+MONO_VI_CENTRE_ATOL = 1e-3   # keyframe centres, metres (metric map)
+# the gyro bias is solved from the keyframe rotations, which the two
+# devices' float32 tracking leaves ~1e-6 rad apart (measured 2.0e-6)
+MONO_VI_BG_ATOL = 1e-5
 RING_CENTRE_ATOL = 1e-3   # loop closing's keyframe centres, CPU vs GPU
 
 
@@ -236,14 +291,19 @@ def time_calls_us(fn, n: int = TIMED_CALLS, warmup: int = 10) -> float:
     return statistics.median(times)
 
 
-def pose_bound(n: int, outer: int, inner: int,
-               batch: int = 1) -> tuple[float, str]:
+def pose_bound(n: int, outer: int, inner: int, batch: int = 1,
+               mono: bool = False) -> tuple[float, str]:
     """The pose refine's roofline bound for ``batch`` problems of ``n``
     features: T_init, points, uv, right, weight, mask and the five camera
-    scalars read once, the poses, inlier flags and counts written once."""
+    scalars read once, the poses, inlier flags and counts written once.
+    ``mono``: every row is a two-row mono residual; the ``right`` column is
+    still read (the input layout is the same)."""
     nbytes = batch * (64 + n * (12 + 8 + 4 + 4 + 1) + 64 + n + 4) + 5 * 4
-    ops = batch * n * (POSE_OPS_PER_FEATURE_STEP * outer * inner
-                       + POSE_OPS_PER_FEATURE_RECLASS * outer)
+    step, reclass = ((POSE_OPS_PER_MONO_FEATURE_STEP,
+                      POSE_OPS_PER_MONO_FEATURE_RECLASS) if mono else
+                     (POSE_OPS_PER_FEATURE_STEP,
+                      POSE_OPS_PER_FEATURE_RECLASS))
+    ops = batch * n * (step * outer * inner + reclass * outer)
     return bound(nbytes, ops)
 
 
@@ -1012,8 +1072,29 @@ def plain_spread(args, kw, trials: int = 16) -> float:
 
 def pose_batched_phase(dev, lane) -> None:
     """The pose kernel on the loop lane's own inputs: the realign's batched
-    launch and a loop verification's single one, against the plain
-    version, reruns bit-identical, timed beside the bound.
+    launch and a loop verification's single one (``pose_cases_phase``)."""
+    pose_cases_phase("pose_batched",
+                     (("realign", lane["realign_args"]),
+                      ("verification", lane["verify_args"])))
+
+
+def pose_mono_phase(dev, lane) -> dict:
+    """The pose kernel on the mono-VI lane's own inputs, every row mono: a
+    window's coarse (1 x 3) and fine (2 x 2) problem after the
+    visual-inertial initialization and the realign's batched launch.
+    Returns the fine problem's device and bound microseconds."""
+    cases = (("coarse", lane["coarse_args"]), ("fine", lane["fine_args"]),
+             ("realign", lane["realign_args"]))
+    for name, (a, _) in cases:
+        check(bool((a[3] <= 0).all()),
+              f"mono-VI lane's {name} problem has stereo rows")
+    return pose_cases_phase("pose_mono", cases, mono=True)["fine"]
+
+
+def pose_cases_phase(phase_name: str, cases, mono: bool = False) -> dict:
+    """The pose kernel on captured calls ``(name, (args, kwargs))``, against
+    the plain version, reruns bit-identical, timed beside the bound.
+    Returns {name: dict(device_us, bound_us)}.
 
     Problems the two solve alike (the same inlier set, >= 10 inliers:
     what the realign keeps) are held within POSE_BATCHED_ATOL.  The others
@@ -1022,8 +1103,8 @@ def pose_batched_phase(dev, lane) -> None:
     itself: 1-ulp changes of its points move its own pose at least half as
     far (on the loop lane one frame ends with 0 to 202 inliers in the
     plain version alone).  At most 2% of a batch may be such problems."""
-    for name, (a, kw) in (("realign", lane["realign_args"]),
-                          ("verification", lane["verify_args"])):
+    timing = {}
+    for name, (a, kw) in cases:
         T0, pts = a[0], a[1]
         batched = T0.dim() == 3
         if not batched:
@@ -1057,8 +1138,10 @@ def pose_batched_phase(dev, lane) -> None:
         device_us = graph_us(lambda: PF.pose_refine_fused(*a, **kw), k=20)
         plain_us = time_calls_us(
             lambda: PF.pose_refine_fused_reference(*a, **kw), n=10, warmup=2)
-        b_ms, b_by = pose_bound(N, outer, inner, batch=B)
-        phase("pose_batched", case=name, B=B, N=N, iters=[outer, inner],
+        b_ms, b_by = pose_bound(N, outer, inner, batch=B, mono=mono)
+        timing[name] = dict(device_us=device_us, bound_us=b_ms * 1e3)
+        phase(phase_name, case=name, B=B, N=N, iters=[outer, inner],
+              matched=int(a[5].sum()),
               max_abs_err=per.max().item(), max_abs_err_kept=err_kept,
               kept=int(kept.sum()), inlier_agreement=agree,
               err_quantiles=torch.quantile(
@@ -1082,6 +1165,7 @@ def pose_batched_phase(dev, lane) -> None:
         check(single_same, f"batched launch differs from single ({name})")
         check(agree > 0.99, f"inlier agreement {agree} ({name})")
         check(dcnt <= max(3, N // 100), f"inlier counts differ by {dcnt}")
+    return timing
 
 
 def loop_cpu_gpu_phase(dev) -> None:
@@ -1147,10 +1231,296 @@ def loop_cpu_gpu_phase(dev) -> None:
     check(same, "solve_pgo reruns not bit-identical on the card")
 
 
+class CapturePose:
+    """While installed, keeps the arguments of the last pose-kernel call
+    ``module.pose_refine_fused`` made with each (outer, inner) schedule,
+    from the moment ``armed()`` is true."""
+
+    def __init__(self, module, armed):
+        self.module, self.armed = module, armed
+        self.inner = module.pose_refine_fused
+        self.last = {}
+
+    def __enter__(self):
+        def wrapped(*a, **k):
+            if self.armed():
+                self.last[(k["outer_iters"], k["inner_iters"])] = (a, k)
+            return self.inner(*a, **k)
+        self.module.pose_refine_fused = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.module.pose_refine_fused = self.inner
+
+
+def watch_landings(system) -> dict:
+    """Wraps ``system.process_frame`` and its IMU solver's ``update_map``
+    to note where the stages land: the frame at which the monocular
+    initialization made its two keyframes, and the newest keyframe's frame
+    when the gyro stage and the gravity / scale stage finished."""
+    landed = dict(mono_init=None, gyro=None, gravity=None)
+    sol, smap = system.imu_solver, system.map
+    inner_pf, inner_um = system.process_frame, sol.update_map
+
+    def process_frame(frame):
+        out = inner_pf(frame)
+        if landed["mono_init"] is None and smap.n_keyframes >= 2:
+            landed["mono_init"] = int(frame.frame_id)
+        return out
+
+    def update_map():
+        inner_um()
+        newest = int(smap.kf_frame_id[smap.valid_keyframes()].max())
+        if landed["gyro"] is None and sol.gyro_initialized:
+            landed["gyro"] = newest
+        if landed["gravity"] is None and sol.gravity_initialized:
+            landed["gravity"] = newest
+
+    system.process_frame, sol.update_map = process_frame, update_map
+    return landed
+
+
+def vi_summary(system) -> dict:
+    sol = system.imu_solver
+    ate, scale, _ = system.ate_against_gt(with_scale=True)
+    return dict(tracked=len(system.tracker.trajectory),
+                keyframes=int(system.map.n_keyframes),
+                points=int(system.map.n_points), sim3_ate_m=float(ate),
+                align_scale=float(scale),
+                vi_initialized=bool(sol.gyro_initialized
+                                    and sol.gravity_initialized),
+                stage=sol.stage.name,
+                bg_err=float(np.abs(sol.bg - VP.BG_TRUE).max()),
+                init_scale=float(sol.init_scale),
+                map_transforms=int(getattr(system.map, "n_transforms", 0)))
+
+
+def mono_vi_lane_phase(dev) -> dict:
+    system, frames = VP.build_lane(dev)
+    runner = WindowedRunner(system, window=VP.WINDOW, two_stage=True)
+    sol = system.imu_solver
+    timed = [Probe(WindowedRunner, "_dispatch"),
+             Probe(WindowedRunner, "_consume"),
+             Probe(WindowedRunner, "_local_map"),
+             Probe(WIN._InFlight, "fetch"),
+             Probe(SlamSystem, "process_frame"),
+             Probe(MI.MonoInitializer, "try_initialize"),
+             Probe(LM.LocalMapper, "dispatch_deferred"),
+             Probe(LM.LocalMapper, "commit_deferred"),
+             Probe(LM.LocalMapper, "process_sync"),
+             Probe(VIS.ImuStateSolver, "update_map"),
+             Probe(VIS.ImuStateSolver, "_stage_gravity_scale"),
+             Probe(VIS.ImuStateSolver, "_stage_refine")]
+    with contextlib.ExitStack() as stack:
+        for t in timed:
+            stack.enter_context(t)
+        # the windows' pose problems once gravity and scale are in
+        window = stack.enter_context(
+            CapturePose(WS, lambda: sol.gravity_initialized))
+        landed = watch_landings(system)
+        PF.LAUNCHES = 0
+        t0 = time.perf_counter()
+        runner.run(frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_launches = PF.LAUNCHES
+    host_s = {f"{t.owner.__name__}.{t.name}": [t.seconds, t.calls]
+              for t in timed}
+    before = vi_summary(system)
+    final_probes = [Probe(VIS.ImuStateSolver, "_solve_chain"),
+                    Probe(GBA.GlobalBA, "full_ba")]
+    with contextlib.ExitStack() as stack:
+        for t in final_probes:
+            stack.enter_context(t)
+        realign = stack.enter_context(
+            Probe(GBA.GlobalBA, "realign_intermediate_frames", keep=True))
+        realign_kernel = stack.enter_context(Probe(GBA, "pose_refine_fused"))
+        n0 = PF.LAUNCHES
+        t0 = time.perf_counter()
+        system.finalize()
+        torch.cuda.synchronize()
+        finalize_s = time.perf_counter() - t0
+        finalize_launches = PF.LAUNCHES - n0
+    after = vi_summary(system)
+    tracked = before["tracked"]
+    phase("mono_vi_lane", frames=len(frames), window=VP.WINDOW, **before,
+          landed=landed, chain_restarts=runner.n_chain_restarts,
+          device_calls=runner.n_device_calls, depth=runner.depth,
+          wall_s=wall, fps=tracked / wall, finalize_s=finalize_s,
+          final={k: after[k] for k in ("keyframes", "points", "sim3_ate_m",
+                                       "align_scale", "bg_err", "stage")},
+          pose_launches=dict(tracking=run_launches,
+                             realign=finalize_launches),
+          realign_batch=realign.out, mono_init_attempts=(
+              system.tracker.mono_initializer.n_attempts),
+          backend=backend_counts(system), host_s_and_calls=host_s,
+          finalize_host_s_and_calls={
+              f"{t.owner.__name__}.{t.name}": [t.seconds, t.calls]
+              for t in final_probes},
+          jax_cpu=JAX_MONO_VI)
+    J = JAX_MONO_VI
+    check(before["vi_initialized"], "the mono-VI lane never initialized its "
+          f"IMU state (stage {before['stage']})")
+    check(before["bg_err"] < 5e-3 and after["bg_err"] < 5e-3,
+          f"gyro bias off by {before['bg_err']}, {after['bg_err']} after "
+          "finalize")
+    check(abs(tracked - J["tracked"]) <= 0.02 * J["tracked"],
+          f"mono-VI lane tracked {tracked}, the JAX run {J['tracked']}")
+    check(abs(before["keyframes"] - J["keyframes"]) <= 0.15 * J["keyframes"],
+          f"mono-VI lane {before['keyframes']} keyframes, the JAX run "
+          f"{J['keyframes']}")
+    for r, ate_ref in ((before, J["sim3_ate_m"]),
+                       (after, J["sim3_ate_final_m"])):
+        check(abs(r["align_scale"] - 1.0) < 0.05,
+              f"mono-VI lane alignment scale {r['align_scale']}")
+        check(r["sim3_ate_m"] <= MONO_VI_ATE_FACTOR * ate_ref,
+              f"mono-VI lane Sim3 ATE {r['sim3_ate_m']} m, the JAX run "
+              f"{ate_ref} m")
+    check(before["map_transforms"] >= 1
+          and runner.n_chain_restarts == before["map_transforms"],
+          f"{runner.n_chain_restarts} chain restarts for "
+          f"{before['map_transforms']} map transforms")
+    check(run_launches == 2 * VP.WINDOW * runner.n_device_calls,
+          f"{run_launches} tracking launches for {runner.n_device_calls} "
+          "windows")
+    check(realign.calls == 2 and finalize_launches == 2
+          and all(b > 0 for b in realign.out),
+          f"{finalize_launches} pose launches for the realign calls "
+          f"{realign.out}")
+    check((1, 3) in window.last and (2, 2) in window.last,
+          "no window was tracked after the visual-inertial initialization")
+    return dict(launches=run_launches + finalize_launches,
+                coarse_args=window.last[(1, 3)],
+                fine_args=window.last[(2, 2)],
+                realign_args=realign_kernel.args)
+
+
+def _wall_ms(fn, sync: bool, n: int = 5) -> float:
+    """Median milliseconds the caller waits for ``fn()`` (with ``sync`` the
+    card is synchronized inside the interval: the callers read the result
+    on the host at once)."""
+    times = []
+    for _ in range(n + 1):
+        t0 = time.perf_counter()
+        fn()
+        if sync:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def vi_solvers_phase(dev) -> None:
+    """``solve_scale_gravity`` and ``solve_imu_chain`` (float64) at K = 16
+    and 64 keyframe slots, on the CPU and on the card."""
+    for K, n_kf in ((16, 12), (64, 60)):
+        arrays = VP.chain_arrays(n_kf, K)
+        arrays.pop("v_true")
+        out, ms = {}, {}
+        for d in ("cpu", dev):
+            t = {k: torch.from_numpy(np.ascontiguousarray(
+                a if a.dtype == bool else a.astype(np.float64))).to(d)
+                for k, a in arrays.items()}
+            chain = IMU.ImuChain(**t)
+            vec = lambda *x: torch.tensor(x, dtype=torch.float64, device=d)
+            g0 = vec(0.3, -0.2, -9.71)
+            trip = torch.arange(K - 2, device=d) < n_kf - 2
+
+            def scale_gravity():
+                return IMU.solve_scale_gravity(
+                    t["R"], t["p"], t["dt"][:-1], t["dt"][1:], t["dp"][:-1],
+                    t["dp"][1:], t["dv"][:-1], trip)
+
+            def chain_solve():
+                return IMU.solve_imu_chain(
+                    chain, vec(0, 0, 0), vec(0, 0, 0), g0, vec(1.2)[0],
+                    solve_scale=True, iterations=4, prior_bias_weight=10.0)
+
+            sg, ch = scale_gravity(), chain_solve()
+            out[str(d)] = (torch.cat([sg[0][None], sg[1], sg[3][None]]).cpu(),
+                           torch.cat([ch["v"].reshape(-1), ch["bg"], ch["ba"],
+                                      ch["g"], ch["s"][None]]).cpu())
+            sync = d != "cpu"
+            ms[str(d)] = dict(scale_gravity=_wall_ms(scale_gravity, sync),
+                              imu_chain=_wall_ms(chain_solve, sync))
+        (sg_c, ch_c), (sg_g, ch_g) = out["cpu"], out[str(dev)]
+        d_sg = (sg_c - sg_g).abs().max().item()
+        d_ch = (ch_c - ch_g).abs().max().item()
+        phase("vi_solvers", K=K, keyframes=n_kf, state=3 * K + 9,
+              scale=sg_g[0].item(), chain_scale=ch_g[-1].item(),
+              max_diff_scale_gravity=d_sg, max_diff_imu_chain=d_ch,
+              cpu_ms=ms["cpu"], gpu_ms=ms[str(dev)])
+        check(abs(sg_g[0].item() - 2.0) < 0.1 and
+              abs(ch_g[-1].item() - 2.0) < 0.1,
+              f"IMU solvers miss the scale at K={K}")
+        check(d_sg <= VI_SOLVER_ATOL,
+              f"solve_scale_gravity differs by {d_sg} at K={K}")
+        check(d_ch <= VI_SOLVER_ATOL,
+              f"solve_imu_chain differs by {d_ch} at K={K}")
+
+
+def mono_vi_cpu_gpu_phase(dev) -> None:
+    """The small mono-VI configuration on the CPU and on the card, both
+    drawing their RANSAC hypotheses from one seeded CPU generator."""
+    from snakeslam_tpu_torch.ops.twoview import draw_samples
+
+    out = {}
+    for d in ("cpu", dev):
+        system, frames = VP.build_lane(
+            d, **dict(VP.SMALL, n_frames=MONO_VI_SMALL_FRAMES))
+        gen = torch.Generator().manual_seed(system.s.random_seed)
+        system.tracker.mono_initializer.sample_fn = (
+            lambda m, n, k, gen=gen, d=d:
+            draw_samples(m.cpu(), n, k, gen).to(d))
+        landed = watch_landings(system)
+        runner = WindowedRunner(system, window=VP.SMALL_WINDOW)
+        # the initializer's host seconds with the libraries warm (the
+        # mono-VI lane before this phase paid their start-up)
+        with Probe(MI.MonoInitializer, "try_initialize") as init:
+            t0 = time.perf_counter()
+            runner.run(frames)
+            if d != "cpu":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[str(d)] = (system, landed, runner, wall, init.seconds)
+    (sc, lc, rc, wall_c, init_c), (sg, lg, rg, wall_g, init_g) = (
+        out["cpu"], out[str(dev)])
+    a, b = vi_summary(sc), vi_summary(sg)
+
+    def centres(system):
+        m = system.map
+        return {int(m.kf_frame_id[k]): np.linalg.inv(m.kf_pose[k])[:3, 3]
+                for k in m.valid_keyframes()}
+
+    cc, cg = centres(sc), centres(sg)
+    diff = max(float(np.linalg.norm(cc[f] - cg[f])) for f in cc if f in cg)
+    d_bg = float(np.abs(sc.imu_solver.bg - sg.imu_solver.bg).max())
+    phase("mono_vi_cpu_vs_gpu", frames=MONO_VI_SMALL_FRAMES,
+          window=VP.SMALL_WINDOW, cpu=a, gpu=b, landed_cpu=lc,
+          landed_gpu=lg, keyframe_frames_cpu=sorted(cc),
+          keyframe_frames_gpu=sorted(cg), max_centre_diff_m=diff,
+          bg_diff=d_bg, wall_s_cpu=wall_c, wall_s_gpu=wall_g,
+          mono_init_s_cpu=init_c, mono_init_s_gpu=init_g,
+          windows_cpu=rc.n_device_calls, windows_gpu=rg.n_device_calls)
+    check(a["vi_initialized"] and b["vi_initialized"],
+          "mono-VI CPU vs GPU: a run never initialized its IMU state")
+    check(lc == lg, f"stages landed at {lc} on the CPU, {lg} on the card")
+    check(sorted(cc) == sorted(cg), "CPU and GPU keep different keyframes")
+    check(a["tracked"] == b["tracked"],
+          f"tracked {a['tracked']} on the CPU, {b['tracked']} on the card")
+    check(diff <= MONO_VI_CENTRE_ATOL,
+          f"mono-VI keyframe centres differ by {diff} m")
+    check(d_bg <= MONO_VI_BG_ATOL, f"mono-VI gyro bias differs by {d_bg}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is false)")
+    only = None
+    if len(sys.argv) > 1:
+        check(len(sys.argv) == 3 and sys.argv[1] == "--only",
+              "usage: chip_smoke.py [--only phase,phase]")
+        only = set(sys.argv[2].split(","))
     dev = torch.device("cuda", 0)
     print(card_line(), flush=True)
     phase("environment", torch=torch.__version__, cuda=torch.version.cuda,
@@ -1158,6 +1528,18 @@ def main() -> int:
           count=torch.cuda.device_count())
     phase("build", seconds=cuda_build.build(
         PF.SOURCE, OK.FAST_SOURCE, OK.PATCH_SOURCE, force=True))
+    if only is not None:
+        if "loop" in only:
+            pose_batched_phase(dev, loop_lane_phase(dev))
+            loop_cpu_gpu_phase(dev)
+        if "mono_vi" in only:
+            pose_mono_phase(dev, mono_vi_lane_phase(dev))
+        if "vi_solvers" in only:
+            vi_solvers_phase(dev)
+        if "mono_vi_cpu_gpu" in only:
+            mono_vi_cpu_gpu_phase(dev)
+        print(card_line(), flush=True)
+        return 0
     kern = kernel_phase(dev)
     lane = render_pixels_lane()
     fast = fast_phase(dev, lane)
@@ -1172,16 +1554,25 @@ def main() -> int:
     loop = loop_lane_phase(dev)
     pose_batched_phase(dev, loop)
     loop_cpu_gpu_phase(dev)
+    mono_vi = mono_vi_lane_phase(dev)
+    mono_fine = pose_mono_phase(dev, mono_vi)
+    vi_solvers_phase(dev)
+    mono_vi_cpu_gpu_phase(dev)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "pose_refine_fused",
         "route": "cuda",
         "source": "snakeslam_tpu_torch/csrc/pose_refine.cu",
         "replaces": "snakeslam_tpu/ops/pose_pallas.py:258",
-        # the smooth, pixels and loop lanes' runs, each counted alone (the
-        # loop lane's: tracking, loop verification and the realign)
-        "launches": smooth_launches + pix["pose"] + loop["launches"],
+        # the smooth, pixels, loop and mono-VI lanes' runs, each counted
+        # alone (the loop lane's: tracking, loop verification and the
+        # realign; the mono-VI lane's: tracking and the realign)
+        "launches": (smooth_launches + pix["pose"] + loop["launches"]
+                     + mono_vi["launches"]),
         **kern,
+        # the mono-VI lane's own fine (2 x 2) problem, every row mono
+        "mono_device_ms": mono_fine["device_us"] / 1e3,
+        "mono_bound_ms": mono_fine["bound_us"] / 1e3,
     }, {
         "name": "fast_score_batch",
         "route": "cuda",

@@ -4,18 +4,31 @@ A port of the JAX package ``snakeslam_tpu`` that keeps its sub-package
 layout and module names, so each module's counterpart is found under the
 same path:
 
-  core/      SE3 Lie algebra, camera model and distortion, scale pyramid,
-             trajectory eval
+  core/      SE3 / Sim3 Lie algebra, camera model and distortion, scale
+             pyramid, trajectory eval
   ops/       tensor ops: linear algebra, descriptors, matching, pose GN, ORB,
-             and the hand-written CUDA kernels (ops/pose_fused.py,
-             ops/orb_kernels.py; sources in csrc/)
+             triangulation, two-view geometry and its RANSACs, bundle
+             adjustment, BoW, Sim3 solver, pose-graph optimization, IMU
+             preintegration and the IMU solvers, and the hand-written CUDA
+             kernels (ops/pose_fused.py, ops/orb_kernels.py; sources in
+             csrc/)
   models/    per-frame and windowed tracking steps
-  map/       host map (numpy pools) and its device point table
-  tracking/  tracker state machine, staging, windowed runner
-  mapping/   keyframe insertion (synchronous half)
-  system/    settings, stats, SlamSystem
-  utils/     synthetic and rendered worlds, conversion of JAX-package state,
-             the kernels' build helper, the native runtime library
+  map/       host map (numpy pools), its device point table and the
+             keyframe feature pool
+  tracking/  tracker state machine, monocular two-frame initializer,
+             staging, windowed runner
+  mapping/   keyframe insertion and the keyframe cycle (triangulation,
+             neighbour fusion, local BA dispatch and commit)
+  optim/     local BA, global BA, observation packing, simplification, the
+             deferred mapper
+  loop/      keyframe database, Sim3 loop closing, relocalization
+  imu/       the decoupled visual-inertial state solver (gyro bias, gravity
+             and scale, staged refinement, the final alternation)
+  system/    settings, stats, delayed queues, SlamSystem
+  utils/     synthetic and rendered worlds, synthetic IMU, seeded problems
+             (pose, back-end, loop, visual-inertial), conversion of
+             JAX-package state, the kernels' build helper, the native runtime
+             library
   frontend/  synthetic feature source, pixels-in stereo front-end, feature
              detector and preprocessing
 

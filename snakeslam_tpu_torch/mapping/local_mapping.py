@@ -3,7 +3,7 @@
 Counterpart of ``snakeslam_tpu/mapping/local_mapping.py`` (the reference's
 LocalMapping::Process fan-out hub): the synchronous half (observation
 association with duplicate arbitration, stereo/depth point insertion,
-spanning-tree update, median depth) and the deferred cycle — recent-point
+spanning-tree update, median depth, IMU edge binding) and the deferred cycle — recent-point
 culling, triangulation against the ``TRI_NB`` best covisible keyframes,
 bidirectional neighbour fusion and the local BA dispatched back-to-back
 against one snapshot (``dispatch_deferred``), then one readback and the
@@ -34,11 +34,12 @@ TRI_NB = 10  # fixed neighbour fan-out width (LocalMapping.cpp:317-329):
 
 class LocalMapper:
     def __init__(self, settings: Settings, smap: SlamMap, device, lba=None,
-                 backends=None):
+                 backends=None, imu_solver=None):
         self.s = settings
         self.map = smap
         self.device = torch.device(device)
         self.lba = lba
+        self.imu_solver = imu_solver
         self.backends = backends or []  # further queues (simplification, ...)
         self.map_searcher = MapSearcher(settings, smap, self.device)
         self.recent_points: list[tuple[int, int]] = []  # (pt, created_at_kf)
@@ -129,6 +130,10 @@ class LocalMapper:
             self._insert_stereo_points(kf, frame)
         self.map.update_spanning_tree_parent(kf)
         self.map.compute_median_depth(kf)
+        # IMU edge binding consumes the pending sample window and must run
+        # at insertion order (before later frames feed more samples)
+        if self.imu_solver is not None:
+            self.imu_solver.process_new_keyframe(kf, int(self.map.kf_prev[kf]))
 
     def process_deferred(self, kf: int, frame: FrameData):
         self.commit_deferred(self.dispatch_deferred(kf))
@@ -178,6 +183,9 @@ class LocalMapper:
                                     only_dirty=True)
         if ba is not None:
             self.lba.commit(kf, fetched, ba[1])
+        if self.imu_solver is not None:
+            # the visual-inertial state machine, after the local BA
+            self.imu_solver.update_map()
         for b in self.backends:
             b.add(kf)
 

@@ -5,11 +5,12 @@ compiles the window as one ``lax.scan``; here it is a Python loop over the
 W frames whose carry (pose, velocity, keyframe-decision state, stopped
 flag) and per-frame flags stay device tensors combined with
 ``torch.where``, so the loop never waits for the device.  Per frame:
-constant-velocity prediction -> coarse projection matching -> robust pose
-refine (1 x 3) -> fine projection matching -> robust pose refine (2 x 2)
--> in-loop keyframe decision against a carried virtual-keyframe state.
-(The JAX package's single-stage variant and gyro prediction are not
-ported yet.)
+constant-velocity prediction (with ``use_imu`` its rotation is replaced by
+the gyro-predicted one the packed row carries) -> coarse projection
+matching -> robust pose refine (1 x 3) -> fine projection matching ->
+robust pose refine (2 x 2) -> in-loop keyframe decision against a carried
+virtual-keyframe state.  With ``two_stage=False`` one fine search of twice
+the radius from the predicted pose replaces the coarse stage.
 
 The robust pose refine is chosen by the device of the tensors: on CUDA the
 fused CUDA kernel (ops/pose_fused.py), on the CPU ``robust_pose_refine``,
@@ -143,6 +144,8 @@ def window_track(
     n_valid_frames: int,            # unpadded window length
     med_override: float | None = None,  # refreshed median depth (> 0)
     n_slots: int = 1024,
+    two_stage: bool = True,
+    use_imu: bool = False,
 ):
     """Track up to W frames against one local-map snapshot.
 
@@ -173,26 +176,38 @@ def window_track(
 
     def track_one(T_pred, frame):
         weight = inv_scales[torch.clamp(frame.octave, 0, st.levels - 1).long()]
-        # coarse: prediction-radius matching against the snapshot
-        outc = M.search_by_projection_coarse(
-            lm, frame, T_pred, cam, bf, bounds, st,
-            feat_free=frame.valid, th=coarse_radius, feature_error=75,
-            use_rotation_hist=False,
-        )
-        assign_c = outc["feat_point"]
-        matched_c = assign_c >= 0
-        pidx = torch.clamp(assign_c, 0, P - 1).long()
-        obs = PoseObs(points=lm.position[pidx], uv=frame.uv,
-                      right=frame.right, weight=weight, mask=matched_c)
-        T1, _, _ = _refine(T_pred, obs, 1, 3)
-        # fine: tighter radius from the refined pose
-        outf = M.search_by_projection_fine(
-            lm, frame, T1, cam, bf, bounds, st,
-            feat_free=frame.valid & (~matched_c), th=fine_th, ratio=0.8,
-        )
-        assign_f = outf["feat_point"]
-        matched = matched_c | (assign_f >= 0)
-        assign = torch.where(matched_c, assign_c, assign_f)
+        if two_stage:
+            # coarse: prediction-radius matching against the snapshot
+            outc = M.search_by_projection_coarse(
+                lm, frame, T_pred, cam, bf, bounds, st,
+                feat_free=frame.valid, th=coarse_radius, feature_error=75,
+                use_rotation_hist=False,
+            )
+            assign_c = outc["feat_point"]
+            matched_c = assign_c >= 0
+            pidx = torch.clamp(assign_c, 0, P - 1).long()
+            obs = PoseObs(points=lm.position[pidx], uv=frame.uv,
+                          right=frame.right, weight=weight, mask=matched_c)
+            T1, _, _ = _refine(T_pred, obs, 1, 3)
+            # fine: tighter radius from the refined pose
+            outf = M.search_by_projection_fine(
+                lm, frame, T1, cam, bf, bounds, st,
+                feat_free=frame.valid & (~matched_c), th=fine_th, ratio=0.8,
+            )
+            assign_f = outf["feat_point"]
+            matched = matched_c | (assign_f >= 0)
+            assign = torch.where(matched_c, assign_c, assign_f)
+        else:
+            # single-stage: the prediction is excellent within a window, so
+            # one wider fine search replaces coarse + fine (half the GN
+            # steps)
+            T1 = T_pred
+            outf = M.search_by_projection_fine(
+                lm, frame, T_pred, cam, bf, bounds, st,
+                feat_free=frame.valid, th=2.0 * fine_th, ratio=0.8,
+            )
+            assign = outf["feat_point"]
+            matched = assign >= 0
         pidx = torch.clamp(assign, 0, P - 1).long()
         obs = PoseObs(points=lm.position[pidx], uv=frame.uv,
                       right=frame.right, weight=weight, mask=matched)
@@ -274,8 +289,13 @@ def window_track(
     fnd_sum = torch.zeros(P, dtype=torch.float32, device=dev)
     pad_row = torch.zeros(4, dtype=torch.float32, device=dev)
     for w in range(W):
-        frame, ts, _ = _unpack_frame(frames_buf[w], n_slots)
+        frame, ts, dR_imu = _unpack_frame(frames_buf[w], n_slots)
         T_pred = vel @ T_last_c
+        if use_imu:
+            # gyro-predicted rotation, constant-velocity translation
+            # (TrackingCoarse.cpp:322-327 prediction split)
+            T_pred = lie.orthonormalize(
+                lie.se3(dR_imu @ T_last_c[:3, :3], T_pred[:3, 3]))
         T, assign, n_inl, visible, found = track_one(T_pred, frame)
         ok = n_inl >= 25
         padded = w >= n_valid_frames          # duplicated tail padding

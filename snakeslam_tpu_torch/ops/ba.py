@@ -80,6 +80,18 @@ def problem_to_device(cam_pose, cam_fixed, cam_valid, points, point_valid,
     )
 
 
+def empty_rpc(device, dtype=torch.float32) -> dict:
+    """The relative-pose-constraint fields of a problem that has none: one
+    invalid slot."""
+    return dict(
+        rpc_i=torch.zeros(1, dtype=torch.int32, device=device),
+        rpc_j=torch.zeros(1, dtype=torch.int32, device=device),
+        rpc_T=torch.eye(4, dtype=dtype, device=device)[None],
+        rpc_weight=torch.zeros((1, 6), dtype=dtype, device=device),
+        rpc_valid=torch.zeros(1, dtype=torch.bool, device=device),
+    )
+
+
 def se3_adjoint(T: torch.Tensor) -> torch.Tensor:
     """Adjoint of SE3 for (v, w) tangent ordering: (..., 6, 6)."""
     R = T[..., :3, :3]

@@ -32,6 +32,7 @@ from snakeslam_tpu_torch.ops import ba as BA
 from snakeslam_tpu_torch.ops import matching as M
 from snakeslam_tpu_torch.ops.pose_fused import pose_refine_fused
 from snakeslam_tpu_torch.ops.pose_solver import PoseObs, robust_pose_refine
+from snakeslam_tpu_torch.optim.lba import pack_rpc
 from snakeslam_tpu_torch.optim.packing import (
     erase_outlier_observations,
     pack_observations,
@@ -53,10 +54,7 @@ def _bucket(n: int, minimum: int = 16) -> int:
 class GlobalBA:
     def __init__(self, settings: Settings, smap: SlamMap, device,
                  imu_solver=None):
-        if imu_solver is not None:
-            raise NotImplementedError(
-                "GlobalBA: the IMU relative-pose constraints are ported with "
-                "the IMU slice (ROADMAP.md queue A, step 13)")
+        self.imu_solver = imu_solver
         if getattr(settings, "n_devices", 1) > 1:
             raise NotImplementedError(
                 "GlobalBA: the sharded multi-device solve is not ported yet "
@@ -104,14 +102,19 @@ class GlobalBA:
         obs = pack_observations(smap, pts, slot_of_kf, P, obs_slots,
                                 self.pyramid.inv_scales)
 
-        # no relative-pose constraints without the IMU: one invalid slot
+        # IMU relative-pose constraints over the whole keyframe chain
+        # (GlobalBundleAdjustment.cpp:427-481): C slots with a solver past
+        # its gyro stage, else one invalid slot
+        kf_list = [int(k) for k in kfs]
+        has_rpc = (self.imu_solver is not None
+                   and self.imu_solver.rpc_for_window(kf_list))
+        rpc = pack_rpc(self.imu_solver if has_rpc else None, kf_list,
+                       slot_of_kf, C if has_rpc else 1, np.float64)
         problem = BA.problem_to_device(
             cam_pose, cam_fixed, cam_valid, points, point_valid,
             obs["obs_cam"], obs["obs_uv"], obs["obs_right"],
-            obs["obs_weight"], obs["obs_valid"],
-            np.zeros(1, dtype=np.int32), np.zeros(1, dtype=np.int32),
-            np.eye(4)[None], np.zeros((1, 6)),
-            np.zeros(1, dtype=bool), self.device, float_dtype=np.float64,
+            obs["obs_weight"], obs["obs_valid"], *rpc, self.device,
+            float_dtype=np.float64,
         )
         return problem, dict(kfs=kfs, pts=pts, **obs)
 

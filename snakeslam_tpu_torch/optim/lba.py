@@ -6,6 +6,8 @@ previous keyframes plus fixed boundary keyframes observing shared points,
 solve (3 LM iterations), chi2 outlier classification and erase, and a
 guarded commit.  The solve is ``ops/ba.solve_ba`` with fixed (C, P, M)
 slots; P is bucketed so the shapes take at most three values per run.
+With an IMU state solver, the gyro relative-rotation factors between
+consecutive window keyframes fill the problem's relative-pose slots.
 """
 
 from __future__ import annotations
@@ -22,12 +24,36 @@ from snakeslam_tpu_torch.optim.packing import (
     pack_observations,
 )
 from snakeslam_tpu_torch.system.settings import Settings
+from snakeslam_tpu_torch.tracking.staging import HostCopy
 
 F32 = np.float32
 
 
+def pack_rpc(imu_solver, kfs, slot_of_kf, n_slots: int, dtype):
+    """The relative-pose-constraint arrays (rpc_i, rpc_j, rpc_T, rpc_weight,
+    rpc_valid) of a BA problem: the IMU solver's gyro relative-rotation
+    factors between consecutive keyframes of ``kfs``, in ``n_slots`` slots;
+    without a solver (or before its gyro stage) every slot is invalid."""
+    rpc_i = np.zeros(n_slots, dtype=np.int32)
+    rpc_j = np.zeros(n_slots, dtype=np.int32)
+    rpc_T = np.tile(np.eye(4, dtype=dtype), (n_slots, 1, 1))
+    rpc_w = np.zeros((n_slots, 6), dtype=dtype)
+    rpc_valid = np.zeros(n_slots, dtype=bool)
+    rpc = imu_solver.rpc_for_window(kfs) if imu_solver is not None else None
+    for r, (ki, kj, T, w_t, w_r) in enumerate((rpc or [])[:n_slots]):
+        rpc_i[r] = slot_of_kf[ki]
+        rpc_j[r] = slot_of_kf[kj]
+        rpc_T[r] = T
+        rpc_w[r, :3] = w_t
+        rpc_w[r, 3:] = w_r
+        rpc_valid[r] = True
+    return rpc_i, rpc_j, rpc_T, rpc_w, rpc_valid
+
+
 class LocalBA:
-    def __init__(self, settings: Settings, smap: SlamMap, device):
+    def __init__(self, settings: Settings, smap: SlamMap, device,
+                 imu_solver=None):
+        self.imu_solver = imu_solver
         self.s = settings
         self.map = smap
         self.device = torch.device(device)
@@ -107,20 +133,13 @@ class LocalBA:
         obs = pack_observations(smap, pts, slot_of_kf, P, M,
                                 self.pyramid.inv_scales)
 
-        # relative-pose constraint slots between consecutive window KFs;
-        # the IMU chain fills them (ROADMAP.md queue A, step 13), until
-        # then every slot is invalid
-        R_slots = C
+        # IMU relative-rotation constraints between consecutive window KFs
+        # (LocalBundleAdjustment.cpp:295-347); C slots, invalid without IMU
+        rpc = pack_rpc(self.imu_solver, window, slot_of_kf, C, F32)
         problem = BA.problem_to_device(
             cam_pose, cam_fixed, cam_valid, points, point_valid,
             obs["obs_cam"], obs["obs_uv"], obs["obs_right"],
-            obs["obs_weight"], obs["obs_valid"],
-            np.zeros(R_slots, dtype=np.int32),
-            np.zeros(R_slots, dtype=np.int32),
-            np.tile(np.eye(4, dtype=F32), (R_slots, 1, 1)),
-            np.zeros((R_slots, 6), dtype=F32),
-            np.zeros(R_slots, dtype=bool),
-            self.device,
+            obs["obs_weight"], obs["obs_valid"], *rpc, self.device,
         )
         # identity stamps for the guarded commit: the pipelined flush
         # commits one cycle late and both pools recycle slots
@@ -130,6 +149,20 @@ class LocalBA:
         return problem, aux
 
     # ------------------------------------------------------------------
+
+    def add(self, kf: int):
+        """Queue interface (delay 0: synchronous)."""
+        self.run(kf)
+
+    def run(self, kf: int, iterations: int = 3):
+        """Snapshot -> solve -> guarded commit in one call: the commit is
+        dropped whole when the map changed since the snapshot (the
+        optimistic-concurrency check of LocalBundleAdjustment.cpp:463-499;
+        with one caller at a time it never fires)."""
+        disp = self.dispatch(kf, iterations)
+        if disp is None:
+            return
+        self.commit(kf, HostCopy(disp[0]).wait(), disp[1], check_state=True)
 
     def dispatch(self, kf: int, iterations: int = 3):
         """Async half: snapshot + pack + queue the solve, no blocking.
@@ -141,7 +174,9 @@ class LocalBA:
             window, boundary, pts = self.select_window(kf)
             if len(window) < 2 or len(pts) < 20:
                 return None
+            state_before = smap.state
             problem, aux = self.pack(window, boundary, pts)
+            aux["state_before"] = state_before
 
         cam_pose, points, _ = BA.solve_ba(problem, self.cam, self.bf,
                                           iterations=iterations)
@@ -149,16 +184,18 @@ class LocalBA:
                                         cam_pose, points)
         return [cam_pose, points, outliers], aux
 
-    def commit(self, kf: int, fetched, aux):
-        """Guarded write-back, in the keyframe cycle one cycle after the
-        dispatch: the only mutations since pack were the cycles' own
-        triangulation / fusion commits, so per-element guards (identity
-        stamps, finiteness) decide what is written.  The whole-map drop of
-        the reference's synchronous ``run`` arrives with its caller, the
-        monocular initializer (ROADMAP.md queue A, step 12)."""
+    def commit(self, kf: int, fetched, aux, check_state: bool = False):
+        """Guarded write-back.  In the keyframe cycle (check_state=False)
+        it lands one cycle after the dispatch: the only mutations since
+        pack were the cycles' own triangulation / fusion commits, so
+        per-element guards (identity stamps, finiteness) decide what is
+        written.  ``run`` passes check_state=True: any map change since the
+        snapshot drops the commit whole."""
         smap = self.map
         cam_pose, points, outliers = fetched
         with smap.lock:
+            if check_state and smap.state != aux["state_before"]:
+                return
             cam_pose = cam_pose.astype(np.float64)
             points = points.astype(np.float64)
             win = aux["cams"][: aux["n_window"]]

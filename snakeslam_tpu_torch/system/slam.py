@@ -1,8 +1,9 @@
 """SlamSystem: module construction, the run loop, end-of-run passes,
 trajectories, ATE.
 
-Counterpart of ``snakeslam_tpu/system/slam.py`` for stereo / RGB-D input on
-one ``device``: the map, the BoW vocabulary and keyframe database, loop
+Counterpart of ``snakeslam_tpu/system/slam.py`` for monocular, stereo and
+RGB-D input on one ``device``: the map, the IMU state solver (with
+``enable_imu``), the BoW vocabulary and keyframe database, loop
 closing (with its own global BA) and relocalization, the tracker, the local
 mapper with its keyframe cycle (triangulation, neighbour fusion, local BA)
 and, behind it, loop closing first and then the keyframe-reduction
@@ -24,6 +25,7 @@ import torch
 
 from snakeslam_tpu_torch.core import lie
 from snakeslam_tpu_torch.core import trajectory as traj
+from snakeslam_tpu_torch.imu.state_solver import ImuStateSolver
 from snakeslam_tpu_torch.loop.keyframe_database import KeyframeDatabase
 from snakeslam_tpu_torch.loop.loop_closing import LoopClosing
 from snakeslam_tpu_torch.loop.relocalization import Relocalizer
@@ -35,16 +37,13 @@ from snakeslam_tpu_torch.optim.gba import GlobalBA
 from snakeslam_tpu_torch.optim.lba import LocalBA
 from snakeslam_tpu_torch.optim.simplification import Simplification
 from snakeslam_tpu_torch.system.queues import DelayedQueue
-from snakeslam_tpu_torch.system.settings import InputType, Settings
+from snakeslam_tpu_torch.system.settings import Settings
 from snakeslam_tpu_torch.system.stats import PerformanceStats
 from snakeslam_tpu_torch.tracking.tracker import Tracker
 
 
 def _check_settings(s: Settings):
     unported = [
-        (s.input_type == InputType.Mono, "monocular input",
-         "ROADMAP.md queue A, step 12"),
-        (s.enable_imu, "enable_imu", "ROADMAP.md queue A, step 13"),
         (s.async_mode, "async_mode", "ROADMAP.md queue A, step 15"),
         (s.async_lba, "async_lba", "ROADMAP.md queue A, step 15"),
         (s.n_devices > 1, "n_devices > 1", "ROADMAP.md queue A, step 16"),
@@ -93,7 +92,13 @@ class SlamSystem:
         self.device = torch.device(device)
         self.map = SlamMap(settings.max_keyframes, settings.max_points,
                            settings.feature_slots)
-        self.lba = LocalBA(settings, self.map, self.device)
+        self.imu_solver = None
+        if settings.enable_imu:
+            self.imu_solver = ImuStateSolver(
+                settings, self.map, self.device,
+                gba=GlobalBA(settings, self.map, self.device))
+        self.lba = LocalBA(settings, self.map, self.device,
+                           imu_solver=self.imu_solver)
 
         # BoW vocabulary + keyframe database + loop closing + relocalization
         self.vocabulary = load_vocabulary(settings)
@@ -106,7 +111,8 @@ class SlamSystem:
 
         # simplification + deferred mapping behind delayed queues
         # (reference delays: simplification 8, deferred mapper 9)
-        self.simplification = Simplification(settings, self.map)
+        self.simplification = Simplification(settings, self.map,
+                                             imu_solver=self.imu_solver)
         self.deferred_mapper = DeferredMapper(settings, self.map)
         self._simp_queue = DelayedQueue(self.simplification.add, delay=8,
                                         name="simplification")
@@ -115,6 +121,7 @@ class SlamSystem:
 
         self.local_mapper = LocalMapper(
             settings, self.map, self.device, lba=self.lba,
+            imu_solver=self.imu_solver,
             backends=[self.loop_closing,
                       _QueueBackend(self._simp_queue),
                       _QueueBackend(self._deferred_queue)],
@@ -123,6 +130,7 @@ class SlamSystem:
         self.deferred_mapper.local_mapper = self.local_mapper
         self.tracker = Tracker(settings, self.map, self.device,
                                local_mapper=self.local_mapper,
+                               imu_solver=self.imu_solver,
                                relocalizer=self.relocalizer)
         self.stats = PerformanceStats()
         self.n_frames = 0
@@ -145,11 +153,15 @@ class SlamSystem:
         self.finalize()
         return wall
 
-    def finalize(self, gba_iterations: int = 5):
+    def finalize(self, gba_iterations: int = 5, vi_alternations: int = 10):
         """End-of-run passes (System.cpp:167-215): the trailing-section
-        mitigation, the delayed queues drained, full BA twice, outlier
-        removal, full BA, then realign / rematch / realign of the tracked
-        non-keyframe frames against the final map."""
+        mitigation, the delayed queues drained, full BA, then a second full
+        BA or, once the IMU solver has gravity and scale, the final
+        visual-inertial alternation (IterateBaImu: ``vi_alternations``
+        rounds of IMU chain solve + full BA, a scale-solving pass, the
+        rounds again), outlier removal, full BA, then realign / rematch /
+        realign of the tracked non-keyframe frames against the final
+        map."""
         smap = self.map
         # end-of-run bad-section mitigation: the trailing ~30 frames never
         # received the usual back-end polish, so their keyframes' culling
@@ -174,9 +186,17 @@ class SlamSystem:
         self._simp_queue.force_clean()
         self._deferred_queue.force_clean()
         if smap.n_keyframes >= 2:
-            gba = GlobalBA(self.s, smap, self.device)
+            gba = GlobalBA(self.s, smap, self.device,
+                           imu_solver=self.imu_solver)
             gba.full_ba(iterations=gba_iterations)
-            gba.full_ba(iterations=gba_iterations)
+            sol = self.imu_solver
+            if sol is not None and sol.gravity_initialized:
+                # final decoupled-VI alternation (ImuStateSolver.cpp:469-484)
+                old_gba, sol.gba = sol.gba, gba
+                sol.iterate_ba_imu(vi_alternations)
+                sol.gba = old_gba
+            else:
+                gba.full_ba(iterations=gba_iterations)
             gba.remove_outliers()
             gba.full_ba(iterations=gba_iterations)
             # RealignIntermiediateFrames x2 around RematchIntermiediate

@@ -1,12 +1,13 @@
 """Per-frame tracking: state machine, prediction, coarse/fine stages.
 
-Counterpart of ``snakeslam_tpu/tracking/tracker.py`` for stereo and RGB-D
-input: states NOT_INITIALIZED / OK / RECOVERING / LOST, single-frame depth
-initialization, constant-velocity prediction, the coarse -> fine per-frame
-pipeline (models/tracking_step.py), brute-force recovery (knn + PnP RANSAC),
-BoW relocalization once LOST, the keyframe decision and the lost-tracking
-policy.  Monocular initialization and IMU prediction raise
-NotImplementedError.
+Counterpart of ``snakeslam_tpu/tracking/tracker.py``: states
+NOT_INITIALIZED / OK / RECOVERING / LOST, single-frame depth initialization
+(stereo, RGB-D) or the two-frame monocular bootstrap
+(tracking/mono_init.py), constant-velocity prediction fused with the gyro
+preintegration once the IMU solver has a gyro bias, the coarse -> fine
+per-frame pipeline (models/tracking_step.py), brute-force recovery (knn +
+PnP RANSAC), BoW relocalization once LOST, the keyframe decision and the
+lost-tracking policy.
 """
 
 from __future__ import annotations
@@ -19,9 +20,12 @@ import torch
 
 from snakeslam_tpu_torch.core.camera import Pinhole
 from snakeslam_tpu_torch.core.pyramid import ScalePyramid
-from snakeslam_tpu_torch.map.slam_map import FrameData, SlamMap
+from snakeslam_tpu_torch.map.slam_map import (FrameData, SlamMap,
+                                              transform_pose_cw)
 from snakeslam_tpu_torch.models.tracking_step import coarse_step, fine_step
+from snakeslam_tpu_torch.ops.imu import preintegrate_np
 from snakeslam_tpu_torch.system.settings import InputType, Settings
+from snakeslam_tpu_torch.tracking.mono_init import MonoInitializer
 from snakeslam_tpu_torch.tracking.staging import pad_frame_features
 
 
@@ -47,19 +51,12 @@ def _scalar(v, device) -> torch.Tensor:
 
 class Tracker:
     def __init__(self, settings: Settings, smap: SlamMap, device,
-                 local_mapper=None, relocalizer=None):
-        if settings.input_type == InputType.Mono:
-            raise NotImplementedError(
-                "Tracker: monocular initialization is ported with the mono "
-                "slice (ROADMAP.md queue A, step 12)")
-        if settings.enable_imu:
-            raise NotImplementedError(
-                "Tracker: IMU prediction is ported with the IMU slice "
-                "(ROADMAP.md queue A, step 13)")
+                 local_mapper=None, imu_solver=None, relocalizer=None):
         self.s = settings
         self.map = smap
         self.device = torch.device(device)
         self.local_mapper = local_mapper
+        self.imu_solver = imu_solver
         self.relocalizer = relocalizer
         self.state = TrackingState.NOT_INITIALIZED
         self.pyramid = ScalePyramid.create(settings.fd_levels,
@@ -81,18 +78,54 @@ class Tracker:
              settings.height - margin], dtype=torch.float32, device=dev)
         self.scales = torch.as_tensor(self.pyramid.scales, device=dev)
         self.log_sf = _scalar(self.pyramid.log_scale_factor, dev)
-        self.coarse_radius = _scalar(10.0, dev)
-        self.fine_th = _scalar(4.0, dev)
+        self.is_mono = settings.input_type == InputType.Mono
+        self.coarse_radius = _scalar(15.0 if self.is_mono else 10.0, dev)
+        self.fine_th = _scalar(5.0 if self.is_mono else 4.0, dev)
         self.zero = _scalar(0.0, dev)
         # brute-force recovery's RANSAC draws (seeded, on the device)
         self._bf_gen = torch.Generator(device=dev)
         self._bf_gen.manual_seed(settings.random_seed + 29)
 
         self.trajectory: list[FrameData] = []
+        smap.on_transform.append(self._on_map_transform)
         self._fine_cache_state = -1
         # (snapshot, slot->point ids, pt_alloc_gen at snapshot time)
         self._fine_cache = (None, None, None)
         self.mirror = smap.device_mirror(dev)
+        self.mono_initializer = MonoInitializer(
+            settings, dev, quality=settings.initialization_quality,
+            seed=settings.random_seed) if self.is_mono else None
+
+    def _on_map_transform(self, s, R, t):
+        """Rebase tracker state after a whole-map Sim3 (the reference's
+        equivalent is StatePredictor::Rescale + relative pose storage,
+        StatePredictor.cpp:206-216)."""
+        for f in self.trajectory:
+            if f.pose_cw is not None:
+                f.pose_cw = transform_pose_cw(f.pose_cw, s, R, t)
+            if f.rel_to_ref is not None and s != 1.0:
+                # T and T_ref both rebase under the similarity; the relative
+                # rotation is invariant and the translation scales by s
+                f.rel_to_ref = f.rel_to_ref.copy()
+                f.rel_to_ref[:3, 3] *= s
+        f = self.last_frame
+        if (f is not None and f.pose_cw is not None
+                and not any(f is g for g in self.trajectory)):
+            f.pose_cw = transform_pose_cw(f.pose_cw, s, R, t)
+        self.velocity = self.velocity.copy()
+        self.velocity[:3, 3] *= s  # relative rotation invariant; trans scales
+
+    def _reset(self):
+        """Back to NOT_INITIALIZED on an emptied map; the IMU solver's
+        edges are keyed by keyframe ids the pool will hand out again."""
+        self.map.clear()
+        if self.imu_solver is not None:
+            self.imu_solver.clear()
+        self.state = TrackingState.NOT_INITIALIZED
+        self.last_kf = -1
+        self.last_frame = None
+        self.last_tracked_frame = None
+        self.velocity = np.eye(4)
 
     # ------------------------------------------------------------------
     # main entry
@@ -100,6 +133,12 @@ class Tracker:
 
     def process_frame(self, frame: FrameData) -> TrackStats:
         stats = TrackStats(state=self.state)
+        if self.imu_solver is not None:
+            self.imu_solver.add_frame_samples(frame)
+            if self.imu_solver.map_reset_requested:
+                # VI init declared the map inconsistent: full reset
+                # (ImuStateSolver.cpp:277-280)
+                self._reset()
         if (self.state == TrackingState.LOST
                 and self.relocalizer is not None
                 and self.relocalizer.try_relocalize(frame)):
@@ -125,12 +164,26 @@ class Tracker:
                 self.trajectory.append(frame)
             return stats
 
-        # constant-velocity prediction
+        # prediction (StatePredictor analog: constant-velocity motion model
+        # fused with the gyro preintegration, StatePredictor.cpp:18-102)
         T_pred = self.velocity @ self.last_frame.pose_cw if (
             self.last_frame is not None and self.last_frame.pose_cw is not None
         ) else self.map.kf_pose[self.last_kf].copy()
+        prior_w_rot = 0.0
+        if (self.imu_solver is not None and self.imu_solver.gyro_initialized
+                and frame.imu_omega is not None and len(frame.imu_omega)
+                and self.last_frame is not None
+                and self.last_frame.pose_cw is not None):
+            pre = preintegrate_np(
+                frame.imu_omega, frame.imu_acc, frame.imu_dt,
+                self.imu_solver.bg, self.imu_solver.ba)
+            # body == camera: R_cw_new = dR^T @ R_cw_last
+            T_pred = T_pred.copy()
+            T_pred[:3, :3] = pre.dR.T @ self.last_frame.pose_cw[:3, :3]
+            prior_w_rot = self.s.weight_gyro_tracking / max(float(pre.dt),
+                                                            1e-3)
 
-        ok = self._track(frame, T_pred, stats)
+        ok = self._track(frame, T_pred, stats, prior_w_rot=prior_w_rot)
         if ok:
             self.state = TrackingState.OK
             self.recover_frames = 0
@@ -159,7 +212,11 @@ class Tracker:
     # ------------------------------------------------------------------
 
     def _initialize(self, frame: FrameData) -> bool:
-        """Needs >= 180 depth features; unprojects them to map points."""
+        """Depth input needs >= 180 depth features and unprojects them to
+        map points; monocular input goes through the two-frame
+        initializer."""
+        if self.is_mono:
+            return self.mono_initializer.try_initialize(self, frame)
         has_depth = frame.depth > 0
         if has_depth.sum() < 180:
             return False
@@ -320,8 +377,9 @@ class Tracker:
         return T, matched_sel, matched_pts
 
     def _track(self, frame: FrameData, T_pred: np.ndarray,
-               stats: TrackStats) -> bool:
+               stats: TrackStats, prior_w_rot: float = 0.0) -> bool:
         dev = self.device
+        w_rot = _scalar(prior_w_rot, dev) if prior_w_rot else self.zero
         lm_coarse, coarse_ids = self._coarse_local_map()
         if lm_coarse is None:
             return False
@@ -329,7 +387,7 @@ class Tracker:
         T_pred_t = torch.as_tensor(T_pred, dtype=torch.float32, device=dev)
         out = coarse_step(
             lm_coarse, feats, T_pred_t, self.cam, self.bf, self.bounds,
-            self.scales, self.log_sf, self.coarse_radius, self.zero,
+            self.scales, self.log_sf, self.coarse_radius, w_rot,
             self.zero,
         )
         Ns = self.s.feature_slots
@@ -370,7 +428,7 @@ class Tracker:
             torch.from_numpy(coarse_pos).to(dev),
             torch.from_numpy(coarse_matched_pad).to(dev),
             self.cam, self.bf, self.bounds, self.scales, self.log_sf,
-            self.fine_th, T_pred_t, self.zero, self.zero,
+            self.fine_th, T_pred_t, w_rot, self.zero,
         )
         P = lm_fine.position.shape[0]
         fpacked = fout["packed"].cpu().numpy()
@@ -476,12 +534,7 @@ class Tracker:
     def _handle_loss(self, frame: FrameData):
         if self.map.n_keyframes < self.s.reloc_min_keyframes:
             # early loss: clear the map and re-initialize
-            self.map.clear()
-            self.state = TrackingState.NOT_INITIALIZED
-            self.last_kf = -1
-            self.last_frame = None
-            self.last_tracked_frame = None
-            self.velocity = np.eye(4)
+            self._reset()
             return
         recent = self.map.valid_keyframes()[-5:]
         self.map.kf_cull_factor[recent] = 2.0

@@ -13,7 +13,13 @@ state, so speculation stays valid across keyframes: the host inserts the
 real keyframe when it consumes the window that holds it, dispatches the
 keyframe cycle (triangulation, fusion, local BA) and, two window fetches
 later, commits it and swaps a refreshed local-map snapshot into later
-dispatches.
+dispatches.  With an IMU state solver the keyframe cycle commits
+synchronously and the snapshot is refreshed at once, because a
+visual-inertial initialization stage in that commit can rescale the whole
+map; windows then carry the gyro-predicted rotation of every frame.  A
+whole-map transform (``SlamMap.transform``) since the chain began ends the
+chain at the next refresh point and drops the windows in flight: they were
+computed in the old basis.
 
 Initialization, failures and recovery go through the per-frame Tracker
 path.  Deterministic: windows are consumed one per blocking fetch, so the
@@ -40,6 +46,7 @@ from snakeslam_tpu_torch.models.window_step import (
     pack_frames_np,
     window_track,
 )
+from snakeslam_tpu_torch.ops.imu import so3_exp_np
 from snakeslam_tpu_torch.system.settings import InputType
 from snakeslam_tpu_torch.tracking.staging import HostCopy
 from snakeslam_tpu_torch.tracking.tracker import TrackingState
@@ -67,13 +74,38 @@ class _InFlight:
 DEPTH = 4   # windows in flight
 
 
+def gyro_delta_rotation(omega: np.ndarray, dt: np.ndarray,
+                        bg: np.ndarray) -> np.ndarray:
+    """Body-frame relative rotation dR = prod exp((w - bg) dt) over the
+    frame's gyro samples (host-side; a handful of 3x3 products)."""
+    dR = np.eye(3)
+    for inc in so3_exp_np((omega - bg) * dt[:, None]):
+        dR = dR @ inc
+    return dR
+
+
 class WindowedRunner:
-    def __init__(self, system, window: int = 64):
+    def __init__(self, system, window: int = 64, two_stage: bool = True,
+                 depth: int = DEPTH):
         self.system = system
         self.tracker = system.tracker
         self.device = system.device
         self.window = window
+        self.two_stage = two_stage
+        self.depth = max(1, depth)
+        self.imu_solver = getattr(system, "imu_solver", None)
+        if self.imu_solver is not None:
+            # visual-inertial runs cap the speculation depth: every extra
+            # window in flight extends how long tracking runs on a stale
+            # pre-keyframe snapshot, and monocular scale drift compounds
+            # with that staleness until the VI initialization inherits a
+            # distorted map (the JAX package's note: depth 4 gave Sim3 ATE
+            # 0.167 m against 0.008 m at depth 3 on the synthetic orbit).
+            # Stereo / RGB-D have absolute scale and keep the deeper
+            # pipeline.
+            self.depth = min(self.depth, 3)
         self.n_device_calls = 0
+        self.n_chain_restarts = 0   # chains ended by a whole-map transform
         self._backend_token = None
         self._med_override = -1.0
 
@@ -90,11 +122,35 @@ class WindowedRunner:
             self._backend_token = lm.dispatch_deferred(kf)
             if prev is not None:
                 lm.commit_deferred_checked(prev)
+            if self.imu_solver is not None:
+                # visual-inertial: the commit can move the whole map (VI
+                # init stages apply gravity / scale transforms), so it must
+                # land before any later window is consumed: the cycle stays
+                # synchronous
+                self._commit_backend()
 
     def _commit_backend(self):
         tok, self._backend_token = self._backend_token, None
         if tok is not None:
             self.tracker.local_mapper.commit_deferred_checked(tok)
+
+    def _use_imu(self) -> bool:
+        sol = self.imu_solver
+        return sol is not None and sol.gyro_initialized
+
+    def _attach_imu_prediction(self, batch):
+        """Gyro-predicted camera-frame relative rotation per frame (the
+        window's prediction input; TrackingCoarse.cpp:322-327)."""
+        sol = self.imu_solver
+        R_cb = sol.R_cb
+        for f in batch:
+            if getattr(f, "imu_dR_cam", None) is not None:
+                continue
+            if f.imu_omega is None or not len(f.imu_omega):
+                f.imu_dR_cam = np.eye(3)
+                continue
+            dR = gyro_delta_rotation(f.imu_omega, f.imu_dt, sol.bg)
+            f.imu_dR_cam = R_cb @ dR.T @ R_cb.T
 
     # ------------------------------------------------------------------
 
@@ -175,6 +231,9 @@ class WindowedRunner:
         Ns = self.system.s.feature_slots
         batch = frames[start:start + W]
         actual = len(batch)
+        use_imu = self._use_imu()
+        if use_imu:
+            self._attach_imu_prediction(batch)
         padded = batch
         while len(padded) < W:  # pad to the window width (whole rows)
             padded = padded + [padded[-1]]
@@ -193,7 +252,7 @@ class WindowedRunner:
             t.cam, t.bf, t.bounds, t.scales, t.log_sf,
             t.coarse_radius, t.fine_th,
             n_valid_frames=actual, med_override=med,
-            n_slots=Ns, **scal,
+            n_slots=Ns, two_stage=self.two_stage, use_imu=use_imu, **scal,
         )
         item = _InFlight(start=start, batch=batch,
                          results=(outs, assign, vis, fnd),
@@ -203,8 +262,8 @@ class WindowedRunner:
     def _run_chain(self, frames, i, lm, lm_ids, lm_gen) -> int:
         """Dispatch chained windows speculatively from frame i; returns the
         index of the first frame NOT consumed.  A keyframe does not break
-        the chain; it ends on tracking failure, a snapshot bucket-size
-        change, or end of input."""
+        the chain; it ends on tracking failure, a whole-map transform, a
+        snapshot bucket-size change, or end of input."""
         t = self.tracker
         dev = self.device
         n = len(frames)
@@ -231,11 +290,12 @@ class WindowedRunner:
         next_i = i
         stop_dispatch = False
         failed_at = -1
+        transforms_before = getattr(t.map, "n_transforms", 0)
 
         def top_up():
             nonlocal next_i, carry
             while (not stop_dispatch and next_i < n
-                   and len(inflight) < DEPTH):
+                   and len(inflight) < self.depth):
                 item, carry = self._dispatch(
                     frames, next_i, W, lm, lm_ids, lm_gen, carry, scal)
                 next_i += len(item.batch)
@@ -249,11 +309,28 @@ class WindowedRunner:
             item = inflight.pop(0)
             outs, assign, vis, fnd = item.fetch()
 
+            def rebased():
+                """True when a whole-map transform (loop correction,
+                VI-init stage) landed since the chain began: poses already
+                consumed were rebased by the tracker's transform listener,
+                but the windows in flight were computed in the old basis:
+                they are dropped and the chain must restart."""
+                nonlocal stop_dispatch
+                if getattr(t.map, "n_transforms", 0) == transforms_before:
+                    return False
+                inflight.clear()
+                stop_dispatch = True
+                self.n_chain_restarts += 1
+                return True
+
             def do_refresh():
-                """Commit the pending cycle + swap the refreshed snapshot."""
+                """Commit the pending cycle + swap the refreshed snapshot.
+                Returns True when the chain must restart (map rebase)."""
                 nonlocal refresh_pending, stop_dispatch, lm, lm_ids, lm_gen
                 refresh_pending = False
                 self._commit_backend()
+                if rebased():
+                    return True
                 new_lm, new_ids, new_gen = self._local_map()
                 if new_lm is None:
                     stop_dispatch = True
@@ -266,13 +343,16 @@ class WindowedRunner:
                     med = t.map.kf_median_depth[t.last_kf] \
                         or t.map.compute_median_depth(t.last_kf)
                     self._med_override = max(med, 1e-3)
+                return False
 
             if refresh_in > 0:
                 refresh_in -= 1
             if refresh_pending and refresh_in == 0:
                 # deterministic commit point: two blocking window fetches
-                # after the cycle's dispatch
-                do_refresh()
+                # after the cycle's dispatch.  On a restart the fetched
+                # window is dropped unconsumed with the rest in flight
+                if do_refresh():
+                    break
             r = self._consume(item, outs, assign, vis, fnd)
             if r is not None and r is not True and r < 0:
                 failed_at = -(r + 1)
@@ -281,8 +361,21 @@ class WindowedRunner:
             consumed_to = item.start + len(item.batch)
             if r:
                 self._dispatch_backend_cycles()
+                if rebased():
+                    # the pipelined commit of the previous cycle carried
+                    # the transform (the JAX runner notices only at the
+                    # refresh point, two windows later)
+                    break
                 refresh_in = 2
                 refresh_pending = True
+                if self.imu_solver is not None:
+                    # VI commits are synchronous (they can rescale the
+                    # whole map, see _dispatch_backend_cycles): refresh the
+                    # snapshot and run the rebase check at once, so no
+                    # window is dispatched or consumed against a rescaled
+                    # map in the old basis
+                    if do_refresh():
+                        break
             top_up()
 
         if failed_at >= 0:
@@ -327,6 +420,9 @@ class WindowedRunner:
                 self._commit_stats(item, vis, fnd)
                 _update_velocity(w)
                 return -(item.start + w + 1)
+            if self.imu_solver is not None:
+                # keep the keyframe edges' preintegration windows complete
+                self.imu_solver.add_frame_samples(frame)
             frame.pose_cw = poses[w]
             frame.matches = matches_all[w, : frame.n].copy()
             frame.outlier = np.zeros(frame.n, dtype=bool)

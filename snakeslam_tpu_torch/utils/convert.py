@@ -2,9 +2,11 @@
 
 The system has no learned weights; what the two packages share is state:
 local-map snapshots, frame features, camera intrinsics, pose observations
-and the windowed tracker's carry.  These functions take that state as numpy
-arrays (``np.asarray`` of the JAX arrays) and return the port's tensors on
-a given device, so the parity tests feed both packages the same inputs.
+the windowed tracker's carry and the IMU state solver's state.  These
+functions take that state as numpy arrays (``np.asarray`` of the JAX
+arrays) and return the port's tensors on a given device (the solver's
+state stays numpy, as the solver keeps it), so the parity tests feed both
+packages the same inputs.
 """
 
 from __future__ import annotations
@@ -82,3 +84,52 @@ def window_carry_from_numpy(carry, device):
     T, vel, dec, stopped = carry
     return (_f32(T, device), _f32(vel, device), _f32(dec, device),
             _bool(stopped, device))
+
+
+# ---------------------------------------------------------------------------
+# IMU state solver
+# ---------------------------------------------------------------------------
+
+_SOLVER_SCALARS = ("gravity_initialized", "gyro_initialized", "init_scale",
+                   "gyro_iterations", "init_done_time", "refine_idx",
+                   "current_gyro_weight", "current_acc_weight",
+                   "map_reset_requested")
+_SOLVER_VECTORS = ("bg", "ba", "gravity")
+
+
+def imu_solver_state(sol) -> dict:
+    """The state of an IMU state solver of either package as plain numpy:
+    the keyframe edges with their raw samples, the biases, gravity, the
+    stage (by name), the weights and the refinement schedule's position.
+    The map's ``kf_velocity`` / ``kf_bias_*`` travel with the map
+    (``utils/loop_problems.clone_map``)."""
+    state = {k: getattr(sol, k) for k in _SOLVER_SCALARS}
+    state.update({k: np.array(getattr(sol, k), dtype=np.float64)
+                  for k in _SOLVER_VECTORS})
+    state["stage"] = sol.stage.name
+    state["edges"] = {
+        int(kf): dict(prev_kf=int(e.prev_kf), omega=np.array(e.omega),
+                      acc=np.array(e.acc), dt=np.array(e.dt))
+        for kf, e in sol.edges.items()}
+    state["pending_samples"] = [tuple(np.array(a) for a in s)
+                                for s in sol.pending_samples]
+    return state
+
+
+def load_imu_solver_state(sol, state: dict, edge_cls) -> None:
+    """Put ``imu_solver_state``'s snapshot into ``sol`` (a solver of either
+    package; ``edge_cls`` is that package's ``ImuEdge``).  Every edge is
+    preintegrated anew at the snapshot's biases by the solver's own
+    function."""
+    for k in _SOLVER_SCALARS:
+        setattr(sol, k, state[k])
+    for k in _SOLVER_VECTORS:
+        setattr(sol, k, state[k].copy())
+    sol.stage = type(sol.stage)[state["stage"]]
+    sol.edges = {
+        kf: edge_cls(prev_kf=e["prev_kf"], omega=e["omega"].copy(),
+                     acc=e["acc"].copy(), dt=e["dt"].copy())
+        for kf, e in state["edges"].items()}
+    sol.pending_samples = [tuple(a.copy() for a in s)
+                           for s in state["pending_samples"]]
+    sol.recompute_weights()

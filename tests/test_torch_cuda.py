@@ -24,6 +24,13 @@ pair triangulation's integer outputs equal the CPU's.  So do the loop
 closure's pose-graph solve (float64, within 1e-8 of the CPU, bit-identical
 rerun) and Sim3 RANSAC; the pose kernel takes the realign's batch of 320
 problems in one launch.
+
+The monocular visual-inertial path: the pose kernel on the mono problems a
+small mono-VI run hands it (a window's coarse and fine problem after the
+visual-inertial initialization; the same tolerances, reruns bit-identical);
+``window_track`` with ``use_imu=True`` on the card against the CPU (poses
+1e-4, decisions identical); ``solve_scale_gravity`` and ``solve_imu_chain``
+in float64 on the card within 1e-9 of the CPU.
 """
 
 import numpy as np
@@ -499,3 +506,130 @@ def test_pgo_and_sim3_ransac_on_the_card(cuda_device):
     assert torch.equal(rs[3].cpu(), rc[3]) and int(rs[4]) >= 200
     for a, b in zip(rs[:3], rc[:3]):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the monocular visual-inertial path
+# ---------------------------------------------------------------------------
+
+def test_pose_kernel_on_the_mono_vi_lanes_problems(cuda_device):
+    from snakeslam_tpu_torch.models import window_step as WS
+    from snakeslam_tpu_torch.tracking.windowed import WindowedRunner
+    from snakeslam_tpu_torch.utils import vi_problems as VP
+
+    system, frames = VP.build_lane(cuda_device,
+                                   **dict(VP.SMALL, n_frames=72))
+    sol = system.imu_solver
+    captured = {}
+    inner = WS.pose_refine_fused
+
+    def capture(*a, **k):
+        if sol.gravity_initialized:
+            captured[(k["outer_iters"], k["inner_iters"])] = (a, k)
+        return inner(*a, **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(WS, "pose_refine_fused", capture)
+        launches = PF.LAUNCHES
+        runner = WindowedRunner(system, window=VP.SMALL_WINDOW)
+        runner.run(frames)
+    assert sol.gyro_initialized and sol.gravity_initialized
+    assert PF.LAUNCHES - launches == \
+        2 * VP.SMALL_WINDOW * runner.n_device_calls
+    assert set(captured) == {(1, 3), (2, 2)}
+    for (outer, inner_it), (a, kw) in captured.items():
+        assert bool((a[3] <= 0).all()), "a mono lane has no stereo rows"
+        assert int(a[5].sum()) >= 25
+        T, inl, n = PF.pose_refine_fused(*a, **kw)
+        T2, inl2, n2 = PF.pose_refine_fused(*a, **kw)
+        assert torch.equal(T, T2) and torch.equal(inl, inl2)
+        assert torch.equal(n, n2)
+        Tr, ir, nr = PF.pose_refine_fused_reference(*_batch(a), **kw)
+        _check_pose(T[None], inl[None], n[None], Tr, ir, nr)
+
+
+def test_window_track_with_imu_on_the_card(cuda_device):
+    from snakeslam_tpu_torch.frontend.synthetic_source import (
+        apply_world_to_settings, synthetic_frames)
+    from snakeslam_tpu_torch.models import window_step as WS
+    from snakeslam_tpu_torch.system.settings import InputType, Settings
+    from snakeslam_tpu_torch.system.slam import SlamSystem
+    from snakeslam_tpu_torch.tracking.windowed import WindowedRunner
+    from snakeslam_tpu_torch.utils import vi_problems as VP
+    from snakeslam_tpu_torch.utils.imu_synthetic import (orbit_pose_wb,
+                                                         synth_imu)
+    from snakeslam_tpu_torch.utils.synthetic import SyntheticWorld
+
+    W, fps = 4, 10.0
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        world = SyntheticWorld(n_points=1500, seed=5)
+        s = Settings()
+        s.input_type = InputType.Stereo
+        s.enable_imu = True
+        s.feature_slots = 512
+        s.local_map_slots = 1024
+        s.pin_local_map_bucket = True
+        s.th_depth = 25.0
+        apply_world_to_settings(world, s)
+        system = SlamSystem(s, dev)
+        imu = synth_imu(orbit_pose_wb, 0.0, (W + 1) / fps, rate=200.0,
+                        bg=VP.BG_TRUE, gyro_noise=1e-4, acc_noise=1e-3)
+        traj = ((i / fps, VP.orbit_pose_cw(i / fps)) for i in range(W + 1))
+        frames = list(synthetic_frames(world, traj, s, imu=imu))
+        system.process_frame(frames[0])
+        system.imu_solver.gyro_initialized = True
+        system.imu_solver.bg = VP.BG_TRUE.copy()
+        runner = WindowedRunner(system, window=W)
+        assert runner._use_imu()
+        lm, lm_ids, lm_gen = runner._local_map()
+        t = system.tracker
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                        device=system.device)
+        carry = (f32(t.last_frame.pose_cw), f32(np.eye(4)),
+                 f32(runner._initial_dec_state()),
+                 torch.zeros((), dtype=torch.bool, device=system.device))
+        scal = dict(kfi_target=f32(s.kfi_target_matches),
+                    is_stereo=torch.tensor(True, device=system.device),
+                    th_depth=f32(s.th_depth))
+        launches = PF.LAUNCHES
+        item, _ = runner._dispatch(frames, 1, W, lm, lm_ids, lm_gen, carry,
+                                   scal)
+        outs[str(dev)] = [np.asarray(a) for a in item.fetch()]
+        if dev != "cpu":
+            assert PF.LAUNCHES - launches == 2 * W
+    (oc, ac, vc, fc), (og, ag, vg, fg) = outs["cpu"], outs[str(cuda_device)]
+    assert (oc[:, 17] > 0.5).all()
+    np.testing.assert_allclose(og[:, :16], oc[:, :16], atol=1e-4)
+    assert np.array_equal(og[:, 17:20], oc[:, 17:20])
+    assert (ag == ac).mean() >= 0.99
+    for k in range(W):
+        assert abs(int(og[k, 16]) - int(oc[k, 16])) <= max(3, oc[k, 16] // 100)
+
+
+@pytest.mark.parametrize("K,n_kf", [(16, 12), (64, 60)])
+def test_imu_solvers_on_the_card(cuda_device, K, n_kf):
+    from snakeslam_tpu_torch.ops import imu as IMU
+    from snakeslam_tpu_torch.utils import vi_problems as VP
+
+    arrays = VP.chain_arrays(n_kf, K)
+    arrays.pop("v_true")
+    res = {}
+    for dev in ("cpu", cuda_device):
+        t = {k: torch.from_numpy(np.ascontiguousarray(
+            a if a.dtype == bool else a.astype(np.float64))).to(dev)
+            for k, a in arrays.items()}
+        vec = lambda *x: torch.tensor(x, dtype=torch.float64, device=dev)
+        sg = IMU.solve_scale_gravity(
+            t["R"], t["p"], t["dt"][:-1], t["dt"][1:], t["dp"][:-1],
+            t["dp"][1:], t["dv"][:-1],
+            torch.arange(K - 2, device=dev) < n_kf - 2)
+        ch = IMU.solve_imu_chain(
+            IMU.ImuChain(**t), vec(0, 0, 0), vec(0, 0, 0),
+            vec(0.3, -0.2, -9.71), vec(1.2)[0], solve_scale=True,
+            iterations=4, prior_bias_weight=10.0)
+        res[str(dev)] = [x.cpu().numpy() for x in sg] + \
+            [ch[k].cpu().numpy() for k in ("v", "bg", "ba", "g", "s")]
+    for a, b in zip(res["cpu"], res[str(cuda_device)]):
+        np.testing.assert_allclose(b, a, atol=1e-9)
+    assert abs(float(res["cpu"][0]) - 2.0) < 0.1

@@ -215,6 +215,21 @@ system.finalize()
 kf_features_cached(system.map, int(system.map.valid_keyframes()[0]), 256,
                    "cpu")
 
+# the monocular visual-inertial modules, and a mono initialization
+import snakeslam_tpu_torch.imu.state_solver
+import snakeslam_tpu_torch.ops.imu
+import snakeslam_tpu_torch.tracking.mono_init
+import snakeslam_tpu_torch.utils.imu_synthetic
+from snakeslam_tpu_torch.utils import vi_problems
+
+msys, mframes = vi_problems.build_lane("cpu", n_frames=6, fps=10.0,
+                                       n_points=1500, seed=5,
+                                       lba_slots=(24, 4096, 8))
+for f in mframes:
+    msys.process_frame(f)
+assert msys.map.n_keyframes >= 2, "mono initialization did not land"
+assert msys.imu_solver.edges or msys.imu_solver.pending_samples
+
 # the pixels-in modules: render, extract, match, cache
 import numpy as np
 from snakeslam_tpu_torch.frontend.feature_detector import FeatureDetector
@@ -254,7 +269,7 @@ sys.exit(1 if bad else 0)
 def test_port_imports_no_jax():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO,
-                       env=env, capture_output=True, text=True, timeout=120)
+                       env=env, capture_output=True, text=True, timeout=400)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "LEAKED []" in r.stdout
 
@@ -264,6 +279,9 @@ def test_port_imports_no_jax():
                                          ("async_mode", True),
                                          ("n_devices", 2)])
 def test_unported_settings_raise(field, value):
+    """Async mode and multi-device settings still raise, naming their
+    ROADMAP step; monocular input and ``enable_imu`` construct (with the
+    mono initializer and the IMU state solver wired in)."""
     from snakeslam_tpu_torch.system.settings import InputType, Settings
     from snakeslam_tpu_torch.system.slam import SlamSystem
 
@@ -271,8 +289,23 @@ def test_unported_settings_raise(field, value):
     s.input_type = InputType.Stereo
     s.enable_imu = False
     setattr(s, field, InputType.Mono if value == "mono" else value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SlamSystem(s, "cpu")
+    if field in ("async_mode", "n_devices"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            SlamSystem(s, "cpu")
+        return
+    system = SlamSystem(s, "cpu")
+    if field == "input_type":
+        assert system.tracker.mono_initializer is not None
+        assert system.loop_closing.use_scale
+        assert float(system.tracker.coarse_radius) == 15.0
+        assert float(system.tracker.fine_th) == 5.0
+    else:
+        sol = system.imu_solver
+        assert sol is not None and sol.gba is not None
+        assert system.lba.imu_solver is sol
+        assert system.tracker.imu_solver is sol
+        assert system.local_mapper.imu_solver is sol
+        assert system.simplification.imu_solver is sol
 
 
 def test_unported_entry_points_raise():
@@ -281,16 +314,23 @@ def test_unported_entry_points_raise():
     from snakeslam_tpu_torch.system.slam import SlamSystem
 
     s = Settings()
-    s.input_type = InputType.Stereo
-    s.enable_imu = False
-    system = SlamSystem(s, "cpu")
+    s.input_type = InputType.Mono
+    s.enable_imu = True
+    system = SlamSystem(s, "cpu")          # monocular + IMU constructs
     # run and finalize are ported (the system glue): an empty run is a no-op
     assert system.run([]) >= 0.0
     system.finalize()
     assert system.map.n_keyframes == 0
+    # the global BA takes the IMU solver's relative-pose factors
+    assert GlobalBA(s, system.map, "cpu",
+                    imu_solver=system.imu_solver).imu_solver is not None
+    for field, value in (("async_mode", True), ("async_lba", True),
+                         ("n_devices", 2)):
+        bad = Settings()
+        setattr(bad, field, value)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            SlamSystem(bad, "cpu")
+    bad = Settings()
+    bad.n_devices = 2
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        GlobalBA(s, system.map, "cpu", imu_solver=object())
-    from snakeslam_tpu_torch.ops import twoview
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        twoview.homography_ransac()
+        GlobalBA(bad, system.map, "cpu")

@@ -106,8 +106,14 @@ def test_essential_and_epipolar_distance_match_jax():
         torch.from_numpy(Ej)[:, None], torch.from_numpy(x1),
         torch.from_numpy(x2)).numpy()
     np.testing.assert_allclose(dt, dj, rtol=1e-5, atol=1e-9)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TTV.essential_ransac(x1[0], x2[0])
+    # the RANSACs are ported (tests/test_torch_twoview.py holds them
+    # against the JAX package): a call runs and masks what it is told to
+    mask = torch.arange(40) < 30
+    E, inl, n = TTV.essential_ransac(
+        torch.from_numpy(x1[0]), torch.from_numpy(x2[0]), mask,
+        torch.Generator().manual_seed(0), n_hypotheses=8)
+    assert E.shape == (3, 3) and int(n) == int(inl.sum())
+    assert not bool(inl[30:].any())
 
 
 def test_depth_grid_is_exact():
