@@ -93,9 +93,30 @@ exits non-zero:
      10 fps, window 8), 80 frames of it, on both devices with the same
      RANSAC hypotheses.
 
-``--only a,b`` runs the build and then only the named phases of 13-19
-(``loop``, ``mono_vi``, ``vi_solvers``, ``mono_vi_cpu_gpu``) and prints no
-result line: for iterating on one lane.
+ 20. tum_render: the CLI lane's TUM-RGBD-format sequence
+     (utils/tum_fixture.py: seed 7, 2000 points in a 5 m room, 300 frames
+     of 640x480 at 30 Hz on an inward orbit arc, TUM freiburg1
+     intrinsics; gray and 16-bit depth PNGs, the ground truth) written to
+     a temporary directory, three frames decoded by the port's reader and
+     held against the rendered arrays;
+ 21. CLI: ``snakeslam_tpu_torch.__main__.main`` in-process on a copy of
+     configs/tum.ini over that sequence on the card (launch counts reset
+     just before, read just after; host seconds by stage), gated against
+     the JAX package's CLI on the CPU over the same files
+     (scripts/jax_cli_reference.py; PERF.md); then ``python3 -m
+     snakeslam_tpu_torch`` as a subprocess over its first 30 frames;
+ 22. CLI async: the same with ``async_mode`` and ``async_lba`` on, gated
+     against the sync run;
+ 23. checkpoint: the CLI run's map saved, loaded, every field compared;
+ 24. depth filter: the RGB-D depth filter at 640x480 on the lane's depth,
+     card against CPU, timed; Input over the sequence with the filter off
+     and on (features with depth per frame);
+ 25. TSDF: the lane's first 30 depth frames fused at V = 128 and 256 on
+     the card and the CPU, compared and timed.
+
+``--only a,b`` runs the build and then only the named phases of 13-25
+(``loop``, ``mono_vi``, ``vi_solvers``, ``mono_vi_cpu_gpu``, ``cli``) and
+prints no result line: for iterating on one lane.
 
 The line before the last is one JSON object with the kernels' names,
 routes, launch counts, errors, times (``ms`` per call, ``device_ms`` per
@@ -109,16 +130,29 @@ Imports only the port, numpy and torch.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import io
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from snakeslam_tpu_torch.core.trajectory import read_tum
+from snakeslam_tpu_torch.frontend.datasets import TumRgbdDataset
+from snakeslam_tpu_torch.frontend.depth_processor import (DepthProcessor,
+                                                          process_depth)
+from snakeslam_tpu_torch.frontend.feature_detector import FeatureDetector
+from snakeslam_tpu_torch.frontend.input import Input
+from snakeslam_tpu_torch.frontend.preprocess import Preprocess
 from snakeslam_tpu_torch.frontend.pixels import (PixelFrameSequence,
                                                  stereo_frontend_batch)
 from snakeslam_tpu_torch.frontend.synthetic_source import (
@@ -128,6 +162,8 @@ from snakeslam_tpu_torch.frontend.synthetic_source import (
 from snakeslam_tpu_torch.imu import state_solver as VIS
 from snakeslam_tpu_torch.loop import loop_closing as LC
 from snakeslam_tpu_torch.loop.keyframe_database import KeyframeDatabase
+from snakeslam_tpu_torch.map import serialization as SER
+from snakeslam_tpu_torch.map.serialization import load_map, save_map
 from snakeslam_tpu_torch.mapping import local_mapping as LM
 from snakeslam_tpu_torch.models import window_step as WS
 from snakeslam_tpu_torch.ops import ba as BA
@@ -137,7 +173,9 @@ from snakeslam_tpu_torch.ops import orb_kernels as OK
 from snakeslam_tpu_torch.ops import pgo as PGO
 from snakeslam_tpu_torch.ops import pose_fused as PF
 from snakeslam_tpu_torch.ops import sim3_solver as SIM3
+from snakeslam_tpu_torch.ops import tsdf as TSDF
 from snakeslam_tpu_torch.optim import gba as GBA
+from snakeslam_tpu_torch.optim import simplification as SIMP
 from snakeslam_tpu_torch.system.settings import InputType, Settings
 from snakeslam_tpu_torch.ops.triangulate_pairs import triangulate_pairs_batch
 from snakeslam_tpu_torch.system import slam as SLAM
@@ -148,10 +186,12 @@ from snakeslam_tpu_torch.tracking import windowed as WIN
 from snakeslam_tpu_torch.tracking.windowed import WindowedRunner
 from snakeslam_tpu_torch.utils import cuda_build
 from snakeslam_tpu_torch.utils import loop_problems as LP
+from snakeslam_tpu_torch.utils import tum_fixture as TF
 from snakeslam_tpu_torch.utils import vi_problems as VP
 from snakeslam_tpu_torch.utils.backend_problems import ba_problem, pair_problem
 from snakeslam_tpu_torch.utils.pose_problems import pose_problem
-from snakeslam_tpu_torch.utils.render_world import render_sequence
+from snakeslam_tpu_torch.utils.render_world import (render_frame,
+                                                     render_sequence)
 from snakeslam_tpu_torch.utils.synthetic import (SyntheticWorld,
                                                  loop_trajectory,
                                                  orbit_trajectory)
@@ -218,6 +258,31 @@ MONO_VI_CENTRE_ATOL = 1e-3   # keyframe centres, metres (metric map)
 # devices' float32 tracking leaves ~1e-6 rad apart (measured 2.0e-6)
 MONO_VI_BG_ATOL = 1e-5
 RING_CENTRE_ATOL = 1e-3   # loop closing's keyframe centres, CPU vs GPU
+# the CLI lane: utils/tum_fixture.py's rendered TUM-RGBD sequence (seed 7,
+# 2000 points, 300 frames of 640x480 at 30 Hz) through the CLI on
+# configs/tum.ini.  Its reference (PERF.md section 2) is the JAX package's
+# tracking, mapping and finalize on the CPU over the same files and the
+# port's ORB features, dropping matches of reused point slots as the
+# port's realign does (scripts/jax_cli_reference.py --drop-stale
+# --port-orb): the card computes those features bit for bit, so both
+# packages' back-ends start from the same inputs.  Gates: tracked within
+# 1%, keyframes within 10%, points within 15%, SE3 ATE within 25%.
+CLI_FRAMES = 300
+JAX_CLI = dict(tracked=300, keyframes=4, points=1309,
+               ate_m=0.003119057390713768)
+# the JAX CLI with its own ORB (--drop-stale): its features differ from
+# the port's in the last bits, which moves this lane's final keyframe count
+# and ATE as far as the two references differ (5 against 4 keyframes,
+# 2.62 against 3.12 mm); held to tracked within 1%, keyframes within one,
+# points within 15% and ATE at most 2x
+JAX_CLI_OWN_ORB = dict(tracked=300, keyframes=5, points=1220,
+                       ate_m=0.0026213152162890964)
+CLI_CPU_ATOL = 1e-3       # m: the CLI on the CPU against the card, centres
+DEPTH_FILTER_FRAMES = 10
+DEPTH_RTOL = 1e-5         # the depth filter on the card against the CPU
+TSDF_FRAMES = 30
+TSDF_TRUNC = 0.15         # m: three voxels at V = 128 over 6 m
+TSDF_ATOL = 1e-5          # TSDF on the card against the CPU
 
 
 def phase(name: str, **fields):
@@ -483,7 +548,7 @@ def fast_phase(dev, lane) -> dict:
     cases = [("level0", views)]
     for lvl in range(1, s.fd_levels):
         scale = s.fd_scale_factor ** lvl
-        cases.append((f"level{lvl}", ORB._resize_matmul(
+        cases.append((f"level{lvl}", ORB._resize_bilinear(
             views, int(round(H / scale)), int(round(W / scale)))))
     cases.append(("odd", views[:3, :101, :157].contiguous()))
     th = float(s.fd_ini_th_fast)
@@ -926,10 +991,12 @@ class Probe:
     """While installed, records the calls of ``owner.name``: their count,
     the host seconds inside them (inclusive: a call nested in another
     probed one counts in both), the pose-kernel launches they made, the
-    arguments of the last one and, with ``keep``, their return values."""
+    arguments of the last one and, with ``keep``, their return values;
+    ``after(args, kwargs)`` runs after each call."""
 
-    def __init__(self, owner, name, keep: bool = False):
+    def __init__(self, owner, name, keep: bool = False, after=None):
         self.owner, self.name, self.keep = owner, name, keep
+        self.after = after
         self.inner = getattr(owner, name)
         self.calls = self.launches = 0
         self.seconds = 0.0
@@ -947,6 +1014,8 @@ class Probe:
                 self.seconds += time.perf_counter() - t0
             if self.keep:
                 self.out.append(r)
+            if self.after is not None:
+                self.after(a, k)
             return r
         setattr(self.owner, self.name, wrapped)
         return self
@@ -1512,6 +1581,402 @@ def mono_vi_cpu_gpu_phase(dev) -> None:
     check(d_bg <= MONO_VI_BG_ATOL, f"mono-VI gyro bias differs by {d_bg}")
 
 
+# ---------------------------------------------------------------------------
+# the dataset CLI lane: a rendered TUM-RGBD sequence through
+# ``python -m snakeslam_tpu_torch``
+# ---------------------------------------------------------------------------
+
+
+
+def tum_render_phase(root: Path) -> dict:
+    """The lane's sequence written in the TUM-RGBD layout (host seconds),
+    then three of its frames decoded by the port's reader and held against
+    the rendered arrays."""
+    world = TF.lane_world()
+    traj = TF.lane_trajectory(CLI_FRAMES)
+    t0 = time.perf_counter()
+    info = TF.write_tum_fixture(root, world, traj)
+    seconds = time.perf_counter() - t0
+    ds = TumRgbdDataset(root)
+    check(len(ds) == CLI_FRAMES, f"the reader sees {len(ds)} frames")
+    frames = list(ds)
+    for i in (0, CLI_FRAMES // 2, CLI_FRAMES - 1):
+        gray, z = render_frame(world, traj[i][1], with_depth=True)
+        check(np.array_equal(frames[i].gray,
+                             np.clip(gray, 0, 255).astype(np.uint8)),
+              f"frame {i}: the decoded image is not the rendered one")
+        check(np.array_equal(
+            frames[i].depth,
+            np.round(z * TF.DEPTH_PER_M).astype(np.uint16).astype(np.float64)
+            * TumRgbdDataset.DEPTH_SCALE),
+            f"frame {i}: the decoded depth is not the rendered one")
+    phase("tum_render", image="640x480 uint8 gray + uint16 depth (5000 per "
+          "m) PNGs", seconds=seconds, **info)
+    return dict(root=root, traj=traj, depths=[f.depth for f in frames],
+                grays={i: frames[i].gray
+                       for i in (0, CLI_FRAMES // 2, CLI_FRAMES - 1)})
+
+
+def cli_run(ini: Path, data: Path, out: Path, dev) -> dict:
+    """``snakeslam_tpu_torch.__main__.main`` in-process on the card, with the
+    launch counters set to 0 just before and read just after, and the host
+    seconds of its stages."""
+    from snakeslam_tpu_torch.__main__ import main as cli_main
+
+    with_depth = []     # features with depth, per frame
+
+    def count_depth(a, k):
+        with_depth.append(int((a[1].depth > 0).sum()))
+
+    stages = dict(orb=Probe(FeatureDetector, "detect"),
+                  undistort=Probe(Preprocess, "undistort_keypoints"),
+                  depth=Probe(Preprocess, "depth_from_rgbd",
+                              after=count_depth),
+                  tracking=Probe(SlamSystem, "process_frame"),
+                  keyframe_cycles=Probe(LM.LocalMapper, "process_deferred"),
+                  finalize=Probe(SlamSystem, "finalize"),
+                  run=Probe(SlamSystem, "run"))
+    # keyframe culls by the number of frames tracked before each (a cull
+    # while frame i is tracked counts at i; one in finalize at the run's
+    # length), as scripts/jax_cli_reference.py counts the JAX run's
+    culls = collections.Counter()
+    text = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        for pr in stages.values():
+            stack.enter_context(pr)
+        stack.enter_context(Probe(
+            SIMP.Simplification, "_erase",
+            after=lambda a, k: culls.update([stages["tracking"].calls])))
+        realign = stack.enter_context(Probe(GBA.GlobalBA,
+                                            "realign_intermediate_frames"))
+        realign_kernel = stack.enter_context(Probe(GBA, "pose_refine_fused"))
+        verify = stack.enter_context(Probe(LC, "pose_refine_fused"))
+        stack.enter_context(contextlib.redirect_stdout(text))
+        OK.FAST_LAUNCHES = 0
+        PF.LAUNCHES = 0
+        rc = cli_main([str(ini), "--dataset", str(data), "--outDir",
+                       str(out), "--device", str(dev)])
+        torch.cuda.synchronize()
+        fast, pose = OK.FAST_LAUNCHES, PF.LAUNCHES
+    check(rc == 0, f"the CLI returned {rc}")
+    system = stages["finalize"].args[0][0]
+    tracked = len(system.tracker.trajectory)
+    ate, n = TF.ate_against_groundtruth(out / "trajectory_frames_ba.tum",
+                                        data / "groundtruth.txt")
+    wall = stages["run"].seconds - stages["finalize"].seconds
+    host_s = {k: [pr.seconds, pr.calls] for k, pr in stages.items()}
+    files = sorted(x.name for x in out.iterdir())
+    return dict(system=system, tracked=tracked,
+                keyframes=system.map.n_keyframes,
+                points=system.map.n_points, ate_m=ate, ate_matched=n,
+                wall_s=wall, fps=tracked / wall,
+                finalize_s=stages["finalize"].seconds, host_s=host_s,
+                fast=fast, pose=pose, realign_calls=realign.calls,
+                realign_launches=realign.launches,
+                realign_args=realign_kernel.args,
+                verification_launches=verify.launches,
+                lba_runs=system.lba.n_runs, files=files,
+                culls_at_frame=dict(sorted(culls.items())),
+                features_with_depth=dict(mean=float(np.mean(with_depth)),
+                                         min=int(np.min(with_depth))),
+                cli_lines=text.getvalue().splitlines()[:2])
+
+
+def check_cli_counts(name: str, r: dict):
+    check(r["fast"] == 4 * CLI_FRAMES,
+          f"{name}: {r['fast']} FAST launches for {CLI_FRAMES} frames")
+    check(r["realign_calls"] == 2 and r["realign_launches"] == 2,
+          f"{name}: {r['realign_launches']} pose launches in "
+          f"{r['realign_calls']} realign calls")
+    check(r["pose"] == r["realign_launches"] + r["verification_launches"],
+          f"{name}: {r['pose']} pose launches outside realign and loop "
+          "verification")
+    for f in ("trajectory_frames_ba.tum", "trajectory_keyframes_ba.tum",
+              "trajectory.ply", "trajectory.npz"):
+        check(f in r["files"], f"{name}: the CLI wrote no {f}")
+
+
+def cli_tum_phase(dev, lane, tmp: Path) -> dict:
+    """The CLI over the lane on the card, gated on the JAX package's CPU
+    runs of the same files (scripts/jax_cli_reference.py), then the CLI as
+    a subprocess over its first 30 frames."""
+    data = lane["root"]
+    ini = TF.copy_config(tmp / "tum.ini")
+    r = cli_run(ini, data, tmp / "out", dev)
+    J, O = JAX_CLI, JAX_CLI_OWN_ORB
+    shown = {k: v for k, v in r.items()
+             if k not in ("system", "realign_args")}
+    phase("cli_tum", frames=CLI_FRAMES, **shown, jax_cpu=J,
+          jax_cpu_own_orb=O, ate_ratio=r["ate_m"] / J["ate_m"],
+          ate_ratio_own_orb=r["ate_m"] / O["ate_m"])
+    for ref, name in ((J, "the JAX run"), (O, "the JAX run, own ORB")):
+        check(abs(r["tracked"] - ref["tracked"]) <= 0.01 * ref["tracked"],
+              f"CLI lane tracked {r['tracked']}, {name} {ref['tracked']}")
+        check(abs(r["points"] - ref["points"]) <= 0.15 * ref["points"],
+              f"CLI lane {r['points']} points, {name} {ref['points']}")
+    check(abs(r["keyframes"] - J["keyframes"]) <= 0.1 * J["keyframes"],
+          f"CLI lane {r['keyframes']} keyframes, the JAX run "
+          f"{J['keyframes']}")
+    check(abs(r["ate_m"] - J["ate_m"]) <= 0.25 * J["ate_m"],
+          f"CLI lane ATE {r['ate_m']} m, the JAX run {J['ate_m']} m")
+    check(abs(r["keyframes"] - O["keyframes"]) <= 1,
+          f"CLI lane {r['keyframes']} keyframes, the JAX run with its own "
+          f"ORB {O['keyframes']}")
+    check(r["ate_m"] <= 2.0 * O["ate_m"],
+          f"CLI lane ATE {r['ate_m']} m, the JAX run with its own ORB "
+          f"{O['ate_m']} m")
+    check_cli_counts("cli_tum", r)
+    out = tmp / "out_subprocess"
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "snakeslam_tpu_torch", str(ini), "--dataset",
+         str(data), "--maxFrames", "30", "--outDir", str(out)],
+        capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent)
+    seconds = time.perf_counter() - t0
+    check(p.returncode == 0, f"python -m snakeslam_tpu_torch exited "
+          f"{p.returncode}: {p.stderr[-2000:]}")
+    files = sorted(x.name for x in out.iterdir())
+    line = next((x for x in p.stdout.splitlines()
+                 if x.startswith("tracked")), "")
+    phase("cli_tum_subprocess", frames=30, seconds=seconds, files=files,
+          line=line)
+    check("trajectory_frames_ba.tum" in files and "trajectory.ply" in files,
+          "the CLI subprocess wrote no trajectory or snapshot")
+    check(line.startswith("tracked 30 frames"), f"subprocess: {line!r}")
+    return r
+
+
+def start_cli_cpu(lane, tmp: Path):
+    """The port's CLI over the whole lane on the CPU (``--device cpu``), a
+    process of its own that runs beside the card's phases on four CPU
+    threads.  Returns (process, output directory, log path)."""
+    ini = TF.copy_config(tmp / "tum_cpu.ini")
+    out, log = tmp / "out_cpu", tmp / "cli_cpu.log"
+    env = dict(os.environ, OMP_NUM_THREADS="4", MKL_NUM_THREADS="4")
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "snakeslam_tpu_torch", str(ini),
+             "--dataset", str(lane["root"]), "--outDir", str(out),
+             "--device", "cpu"], stdout=fh, stderr=subprocess.STDOUT,
+            cwd=Path(__file__).resolve().parent, env=env)
+    return proc, out, log
+
+
+def cli_cpu_gpu_phase(dev, lane, tmp: Path, sync: dict, cpu_run) -> None:
+    """The CLI lane on the CPU against the card: three frames' ORB features
+    bit for bit, then the CPU run (``start_cli_cpu``) against the card's
+    sync run: the same counts, the same keyframes, every keyframe and
+    frame centre within CLI_CPU_ATOL."""
+    s = sync["system"].s
+    det = {str(d): FeatureDetector(s, device=d) for d in ("cpu", dev)}
+    for i, gray in lane["grays"].items():
+        fc, fg = (det[d].detect(gray, i, 0.0) for d in ("cpu", str(dev)))
+        for f in ("uv", "octave", "angle", "descriptors"):
+            check(np.array_equal(getattr(fc, f), getattr(fg, f)),
+                  f"CLI lane frame {i}: ORB {f} differ between CPU and card")
+    proc, out, log = cpu_run
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=1200)
+    waited = time.perf_counter() - t0
+    text = log.read_text()
+    check(rc == 0, f"the CLI on the CPU exited {rc}: {text[-2000:]}")
+    m = re.search(r"tracked (\d+) frames", text)
+    k = re.search(r"keyframes: (\d+)\s+points: (\d+)", text)
+    cpu = dict(tracked=int(m.group(1)), keyframes=int(k.group(1)),
+               points=int(k.group(2)))
+    card = {c: sync[c] for c in cpu}
+    diff = {}
+    for name in ("keyframes", "frames"):
+        tc, pc, _ = read_tum(out / f"trajectory_{name}_ba.tum")
+        tg, pg, _ = read_tum(tmp / "out" / f"trajectory_{name}_ba.tum")
+        check(np.array_equal(tc, tg),
+              f"CLI lane: the CPU and the card keep other {name}")
+        diff[name] = float(np.linalg.norm(pc - pg, axis=1).max())
+    ate, _ = TF.ate_against_groundtruth(out / "trajectory_frames_ba.tum",
+                                        lane["root"] / "groundtruth.txt")
+    phase("cli_cpu_vs_gpu", frames=CLI_FRAMES, orb_frames=sorted(
+              lane["grays"]), cpu=cpu, gpu=card, max_centre_diff_m=diff,
+          ate_m_cpu=ate, ate_m_gpu=sync["ate_m"], waited_s=waited)
+    check(cpu == card, f"CLI lane on the CPU {cpu}, on the card {card}")
+    for name, d in diff.items():
+        check(d <= CLI_CPU_ATOL, f"CLI lane {name} centres differ by {d} m "
+              "between the CPU and the card")
+
+
+def fast_cli_phase(dev, lane, settings) -> None:
+    """The FAST kernel on the CLI lane's own inputs: the four pyramid
+    levels of one of its frames (B = 1), as ``FeatureDetector.detect``
+    hands them over, against the plain version, exact."""
+    levels = []
+    with Probe(OK, "fast_score_batch",
+               after=lambda a, k: levels.append((a, k))):
+        FeatureDetector(settings, device=dev).detect(
+            lane["grays"][CLI_FRAMES // 2], 0, 0.0)
+    check(len(levels) == settings.fd_levels,
+          f"one CLI frame made {len(levels)} FAST calls")
+    for lvl, (a, k) in enumerate(levels):
+        imgs, th = a[0], a[1]
+        sc, co = OK.fast_score_batch(*a, **k)
+        sr, cr = OK.fast_score_batch_reference(*a, **k)
+        torch.cuda.synchronize()
+        check(torch.equal(co, cr), f"FAST corners differ (CLI level {lvl})")
+        check(torch.equal(sc, sr), f"FAST scores differ (CLI level {lvl})")
+        check(int(co.sum()) > 0, f"FAST found no corner (CLI level {lvl})")
+        b_ms, b_by, pass_share = fast_bound(imgs, th)
+        phase("fast_cli", level=lvl, shape=list(imgs.shape), th=th,
+              corners=int(co.sum()), max_abs_err=(sc - sr).abs().max().item(),
+              device_us=graph_us(lambda: OK.fast_score_batch(*a, **k), k=20),
+              bound_us=b_ms * 1e3, bound_by=b_by,
+              compass_pass_share=pass_share)
+
+
+def cli_tum_async_phase(dev, lane, tmp: Path, sync: dict) -> None:
+    """The same lane with async_mode and async_lba: the front-end on a
+    producer thread, the local BA and the back-end queues on workers."""
+    ini = TF.copy_config(tmp / "tum_async.ini", async_mode="true",
+                   async_lba="true")
+    r = cli_run(ini, lane["root"], tmp / "out_async", dev)
+    shown = {k: v for k, v in r.items()
+             if k not in ("system", "realign_args")}
+    phase("cli_tum_async", frames=CLI_FRAMES, **shown,
+          sync_wall_s=sync["wall_s"], sync_ate_m=sync["ate_m"])
+    check(r["system"].s.async_mode and r["system"]._async_lba is not None,
+          "the async INI did not turn async mode on")
+    check(r["tracked"] >= 0.99 * sync["tracked"],
+          f"async lane tracked {r['tracked']}, sync {sync['tracked']}")
+    check(r["ate_m"] <= 2.0 * sync["ate_m"],
+          f"async lane ATE {r['ate_m']} m, sync {sync['ate_m']} m")
+    check(r["lba_runs"] >= 1, "the async local BA never ran")
+    check_cli_counts("cli_tum_async", r)
+
+
+def depth_filter_phase(dev, lane, sync: dict) -> None:
+    """The RGB-D depth filter at 640x480 on the lane's depth frames, card
+    against CPU, then Input with the filter on over the whole sequence
+    (features with depth per frame beside the unfiltered CLI run's)."""
+    proc = {d: DepthProcessor(TF.FR1["fx"], TF.FR1_BF, device=d)
+            for d in ("cpu", dev)}
+    max_rel = 0.0
+    for depth in lane["depths"][:DEPTH_FILTER_FRAMES]:
+        c = proc["cpu"].process(depth)
+        g = proc[dev].process(depth)
+        check(np.array_equal(g > 0, c > 0),
+              "depth filter: the card keeps other pixels than the CPU")
+        keep = c > 0
+        max_rel = max(max_rel, float((np.abs(g - c)[keep]
+                                      / c[keep]).max()))
+    check(max_rel <= DEPTH_RTOL, f"depth filter: card and CPU {max_rel} "
+          "apart (relative)")
+    t = torch.as_tensor(lane["depths"][0], dtype=torch.float32)
+    tg = t.to(dev)
+    ms = dict(card=_wall_ms(lambda: process_depth(tg, TF.FR1_BF), True, 20),
+              cpu=_wall_ms(lambda: process_depth(t, TF.FR1_BF), False, 5))
+    kept = float((proc["cpu"].process(lane["depths"][0]) > 0).mean())
+    s = Settings.from_ini(TF.copy_config(Path(lane["root"]).parent
+                                   / "depth_filter.ini"))
+    s.set_default_parameters_for_dataset()
+    s.depth_filter_enable = True
+    inp = Input(s, dataset=TumRgbdDataset(lane["root"]), device=dev)
+    check(inp.depth_processor is not None,
+          "Input did not build the depth filter")
+    t0 = time.perf_counter()
+    counts = [int((f.depth > 0).sum()) for f in inp]
+    filtered = dict(mean=float(np.mean(counts)), min=int(np.min(counts)),
+                    seconds=time.perf_counter() - t0)
+    phase("depth_filter", frames=DEPTH_FILTER_FRAMES, shape=[480, 640],
+          gauss_radius=2, kept_share=kept, max_rel_diff=max_rel,
+          ms_per_frame=ms, features_with_depth=dict(
+              filter_on=filtered, filter_off=sync["features_with_depth"]))
+    check(len(counts) == CLI_FRAMES and filtered["min"] >= 150,
+          "the filtered lane keeps fewer than 150 features with depth")
+
+
+def tsdf_phase(dev, lane) -> None:
+    """TSDF fusion of the lane's first frames at V = 128 and 256 on the
+    card and the CPU."""
+    depths = [torch.as_tensor(d, dtype=torch.float32)
+              for d in lane["depths"][:TSDF_FRAMES]]
+    poses = [torch.as_tensor(T) for _, T in lane["traj"][:TSDF_FRAMES]]
+    cam = (TF.FR1["fx"], TF.FR1["fy"], TF.FR1["cx"], TF.FR1["cy"])
+    for V in (128, 256):
+        vols, ms = {}, {}
+        for d, sync in (("cpu", False), (dev, True)):
+            vol = TSDF.create_volume(V, extent=6.0, origin=(-3.0, -3.0, -3.0),
+                                     device=d)
+            ds = [x.to(d) for x in depths]
+            times = []
+            for depth, T in zip(ds, poses):
+                t0 = time.perf_counter()
+                vol = TSDF.integrate(vol, depth, T, *cam, TSDF_TRUNC)
+                if sync:
+                    torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            vols[str(d)] = vol
+            ms["card" if sync else "cpu"] = statistics.median(times[1:])
+        c, g = vols["cpu"], vols[str(dev)]
+        diff = float((g.tsdf.cpu() - c.tsdf).abs().max())
+        weights_equal = bool(torch.equal(g.weight.cpu(), c.weight))
+        pc = TSDF.extract_surface_points(c)
+        pg = TSDF.extract_surface_points(g)
+        phase("tsdf", V=V, frames=TSDF_FRAMES, trunc_m=TSDF_TRUNC,
+              ms_per_integration=ms, max_abs_diff=diff,
+              weights_equal=weights_equal, surface_points=[len(pc), len(pg)],
+              observed_share=float((c.weight > 0).float().mean()))
+        check(diff <= TSDF_ATOL, f"TSDF V={V}: card and CPU {diff} apart")
+        check(weights_equal, f"TSDF V={V}: weights differ")
+        check(len(pc) == len(pg) and len(pc) > 1000,
+              f"TSDF V={V}: {len(pg)} surface points on the card, "
+              f"{len(pc)} on the CPU")
+
+
+def checkpoint_phase(tmp: Path, system) -> None:
+    """save_map of the CLI lane's map, load_map, every field compared."""
+    smap = system.map
+    path = tmp / "map.npz"
+    t0 = time.perf_counter()
+    save_map(smap, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_map(path)
+    load_s = time.perf_counter() - t0
+    fields = SER._KF_FIELDS + SER._PT_FIELDS
+    for f in fields:
+        a, b = getattr(smap, f), getattr(back, f)
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"checkpoint: field {f} differs after load")
+    check((back._next_kf, back._next_pt, back.state, back._free_kfs,
+           back._free_pts) == (smap._next_kf, smap._next_pt, smap.state,
+                               smap._free_kfs, smap._free_pts),
+          "checkpoint: allocation state differs after load")
+    phase("checkpoint", fields=len(fields), keyframes=back.n_keyframes,
+          points=back.n_points, bytes=path.stat().st_size, save_s=save_s,
+          load_s=load_s)
+
+
+def cli_phases(dev) -> dict:
+    """The CLI lane's phases; returns the sync run's launch counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        lane = tum_render_phase(tmp / "tum")
+        cpu_run = start_cli_cpu(lane, tmp)
+        try:
+            sync = cli_tum_phase(dev, lane, tmp)
+            fast_cli_phase(dev, lane, sync["system"].s)
+            pose_cases_phase("pose_cli",
+                             (("realign", sync["realign_args"]),))
+            cli_tum_async_phase(dev, lane, tmp, sync)
+            checkpoint_phase(tmp, sync["system"])
+            depth_filter_phase(dev, lane, sync)
+            tsdf_phase(dev, lane)
+            cli_cpu_gpu_phase(dev, lane, tmp, sync, cpu_run)
+        finally:
+            if cpu_run[0].poll() is None:
+                cpu_run[0].kill()
+                cpu_run[0].wait()
+    return dict(fast=sync["fast"], pose=sync["pose"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -1538,6 +2003,8 @@ def main() -> int:
             vi_solvers_phase(dev)
         if "mono_vi_cpu_gpu" in only:
             mono_vi_cpu_gpu_phase(dev)
+        if "cli" in only:
+            cli_phases(dev)
         print(card_line(), flush=True)
         return 0
     kern = kernel_phase(dev)
@@ -1558,17 +2025,19 @@ def main() -> int:
     mono_fine = pose_mono_phase(dev, mono_vi)
     vi_solvers_phase(dev)
     mono_vi_cpu_gpu_phase(dev)
+    cli = cli_phases(dev)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "pose_refine_fused",
         "route": "cuda",
         "source": "snakeslam_tpu_torch/csrc/pose_refine.cu",
         "replaces": "snakeslam_tpu/ops/pose_pallas.py:258",
-        # the smooth, pixels, loop and mono-VI lanes' runs, each counted
-        # alone (the loop lane's: tracking, loop verification and the
-        # realign; the mono-VI lane's: tracking and the realign)
+        # the smooth, pixels, loop, mono-VI and CLI lanes' runs, each
+        # counted alone (the loop lane's: tracking, loop verification and
+        # the realign; the mono-VI lane's: tracking and the realign; the
+        # CLI lane's: the realign)
         "launches": (smooth_launches + pix["pose"] + loop["launches"]
-                     + mono_vi["launches"]),
+                     + mono_vi["launches"] + cli["pose"]),
         **kern,
         # the mono-VI lane's own fine (2 x 2) problem, every row mono
         "mono_device_ms": mono_fine["device_us"] / 1e3,
@@ -1578,7 +2047,8 @@ def main() -> int:
         "route": "cuda",
         "source": "snakeslam_tpu_torch/csrc/fast_score.cu",
         "replaces": "snakeslam_tpu/ops/orb_pallas.py:96",
-        "launches": pix["fast"],
+        # the pixels lane's and the CLI lane's (one a level a frame)
+        "launches": pix["fast"] + cli["fast"],
         **fast,
     }, {
         "name": "patch_gather",

@@ -9,12 +9,13 @@ same path:
   ops/       tensor ops: linear algebra, descriptors, matching, pose GN, ORB,
              triangulation, two-view geometry and its RANSACs, bundle
              adjustment, BoW, Sim3 solver, pose-graph optimization, IMU
-             preintegration and the IMU solvers, and the hand-written CUDA
+             preintegration and the IMU solvers, TSDF fusion, and the
+             hand-written CUDA
              kernels (ops/pose_fused.py, ops/orb_kernels.py; sources in
              csrc/)
   models/    per-frame and windowed tracking steps
-  map/       host map (numpy pools), its device point table and the
-             keyframe feature pool
+  map/       host map (numpy pools), its device point table, the keyframe
+             feature pool, checkpoints and the chaos hooks
   tracking/  tracker state machine, monocular two-frame initializer,
              staging, windowed runner
   mapping/   keyframe insertion and the keyframe cycle (triangulation,
@@ -24,13 +25,19 @@ same path:
   loop/      keyframe database, Sim3 loop closing, relocalization
   imu/       the decoupled visual-inertial state solver (gyro bias, gravity
              and scale, staged refinement, the final alternation)
-  system/    settings, stats, delayed queues, SlamSystem
-  utils/     synthetic and rendered worlds, synthetic IMU, seeded problems
+  system/    settings, stats, delayed queues, the async pipeline,
+             SlamSystem
+  utils/     synthetic and rendered worlds, the rendered TUM-RGBD sequence,
+             synthetic IMU, seeded problems
              (pose, back-end, loop, visual-inertial), conversion of
              JAX-package state, the kernels' build helper, the native runtime
              library
-  frontend/  synthetic feature source, pixels-in stereo front-end, feature
-             detector and preprocessing
+  frontend/  synthetic feature source, dataset readers and Input, the
+             pixels-in stereo front-end, feature detector and preprocessing,
+             the RGB-D depth filter, stereo rectification
+  viewer/    map / frame snapshot export and the offline map plot
+  __main__   the dataset CLI: ``python -m snakeslam_tpu_torch <config.ini>
+             --dataset <dir> [--device cpu]``
 
 State is created on an explicit ``device``; CPU tensors take each kernel's
 plain PyTorch version, CUDA tensors launch the kernel.

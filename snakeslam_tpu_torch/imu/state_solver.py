@@ -68,8 +68,7 @@ class ImuEdge:
 
 
 class ImuStateSolver:
-    def __init__(self, settings: Settings, smap: SlamMap, device="cpu",
-                 gba=None):
+    def __init__(self, settings: Settings, smap: SlamMap, device, gba=None):
         self.s = settings
         self.map = smap
         self.device = torch.device(device)

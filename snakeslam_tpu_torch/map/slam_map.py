@@ -65,6 +65,10 @@ class FrameData:
     # keyframe (its source frame_id matches).
     rel_to_ref: np.ndarray | None = None  # (4, 4)
     ref_frame_id: int = -1
+    # the same guard for point slots: pt_alloc_gen of each match's slot
+    # when the matches were assigned (SlamMap.stamp_matches); a slot freed
+    # and reallocated since then holds another point (SlamMap.live_matches)
+    match_gen: np.ndarray | None = None   # (n,)
 
     @property
     def n(self) -> int:
@@ -490,6 +494,23 @@ class SlamMap:
     @property
     def n_points(self) -> int:
         return int(self.pt_valid.sum())
+
+    def stamp_matches(self, frame: FrameData):
+        """Record the allocation generation of each of ``frame``'s matched
+        point slots (call where the matches are assigned)."""
+        if frame.matches is not None:
+            frame.match_gen = self.pt_alloc_gen[
+                np.maximum(frame.matches, 0)].copy()
+
+    def live_matches(self, frame: FrameData) -> np.ndarray:
+        """(n,) bool: the frame's matches that still name the point they
+        were made with (valid, and the slot not reallocated since the
+        stamp)."""
+        ids = np.maximum(frame.matches, 0)
+        live = (frame.matches >= 0) & self.pt_valid[ids]
+        if frame.match_gen is not None:
+            live &= self.pt_alloc_gen[ids] == frame.match_gen
+        return live
 
     def keyframe_points(self, kf: int) -> np.ndarray:
         """Point ids observed by a keyframe."""

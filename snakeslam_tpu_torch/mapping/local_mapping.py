@@ -148,7 +148,14 @@ class LocalMapper:
         tri = self._tri_dispatch(kf)
         fuse = (self.map_searcher.dispatch(kf)
                 if self.map_searcher is not None else None)
-        ba = self.lba.dispatch(kf) if self.lba is not None else None
+        ba = None
+        if self.lba is not None:
+            if hasattr(self.lba, "dispatch"):
+                ba = self.lba.dispatch(kf)
+            else:
+                # async_lba: the worker runs whole LBA cycles itself
+                # (AsyncLBA, system/pipeline.py)
+                self.lba.add(kf)
         arrays = []
         if tri is not None:
             arrays += [tri[0]["valid"], tri[0]["match_b"], tri[0]["point"]]

@@ -169,14 +169,43 @@ def _interp_matrix(n_out: int, n_in: int) -> np.ndarray:
     return m
 
 
-def _resize_matmul(imgs: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """(B, H, W) -> (B, h, w) bilinear downscale as two f32 matrix products
-    (TF32 is off package-wide, so these are true f32 products; they still
-    round differently from XLA's in the last ulps)."""
-    B, H, W = imgs.shape
-    Ah = torch.from_numpy(_interp_matrix(h, H)).to(imgs.device)
-    Aw = torch.from_numpy(_interp_matrix(w, W)).to(imgs.device)
-    return torch.matmul(torch.matmul(Ah, imgs), Aw.T)
+_TAP_CACHE: dict = {}
+
+
+def _interp_taps(n_out: int, n_in: int):
+    """The two taps of each row of ``_interp_matrix(n_out, n_in)``: (first
+    column, last column, their weights); a row with one non-zero (the
+    clamped border) has its whole weight on the first tap."""
+    key = (n_out, n_in)
+    t = _TAP_CACHE.get(key)
+    if t is None:
+        m = _interp_matrix(n_out, n_in)
+        nz = m != 0
+        c0 = nz.argmax(axis=1)
+        c1 = n_in - 1 - nz[:, ::-1].argmax(axis=1)
+        rows = np.arange(n_out)
+        w0 = m[rows, c0]
+        w1 = np.where(c1 != c0, m[rows, c1], 0.0).astype(np.float32)
+        t = _TAP_CACHE[key] = (c0, c1, w0, w1)
+    return t
+
+
+def _resize_bilinear(imgs: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, H, W) -> (B, h, w) bilinear downscale: rows, then columns, each
+    output ``x[c0] * w0 + x[c1] * w1`` over ``_interp_matrix``'s two taps
+    (the JAX package multiplies by the whole matrices; the values agree to
+    the last ulps).  Two products and one sum, each rounded on its own, so
+    the CPU and a CUDA device give the same bits: a matrix product sums
+    (and fuses multiply-adds) in an order of its library's choosing."""
+    def along(x, dim, n_out):
+        c0, c1, w0, w1 = (torch.from_numpy(a).to(x.device)
+                          for a in _interp_taps(n_out, x.shape[dim]))
+        shape = [1, 1, 1]
+        shape[dim] = n_out
+        return (x.index_select(dim, c0) * w0.view(shape)
+                + x.index_select(dim, c1) * w1.view(shape))
+
+    return along(along(imgs, 1, h), 2, w)
 
 
 def box_blur_batch(imgs: torch.Tensor, k: int = 7) -> torch.Tensor:
@@ -263,10 +292,15 @@ def orient_and_brief(imgs: torch.Tensor, uv: torch.Tensor):
         imgs.device)
     wy = torch.from_numpy((_disc_y * _DISC_MASK).astype(np.float32)).to(
         imgs.device)
-    m10 = torch.einsum("bnij,ij->bn", center, wx)
-    m01 = torch.einsum("bnij,ij->bn", center, wy)
-    # jnp.degrees is a multiply by 180/pi: the same float reaches the bins
-    ang = torch.atan2(m01, m10) * (180.0 / math.pi)
+    # the moments in float64: a float32 pixel times an integer weight is
+    # exact there, and the disc's sums are exact or an ulp of float64 apart
+    # whatever the order, so the CPU and a CUDA device round them to the
+    # same float32 angle (in float32 a resized level's sums round by
+    # summation order, and a BRIEF bin or the angle itself can differ)
+    m10 = torch.einsum("bnij,ij->bn", center.double(), wx.double())
+    m01 = torch.einsum("bnij,ij->bn", center.double(), wy.double())
+    # jnp.degrees is a multiply by 180/pi
+    ang = (torch.atan2(m01, m10) * (180.0 / math.pi)).float()
     ang = torch.where(ang < 0, ang + 360.0, ang)
     blur = _box_blur_patches(src)                         # (B, N, 40, 40)
     bits = _brief_from_patches(
@@ -322,7 +356,7 @@ def extract_orb_batch(images: torch.Tensor, n_features: int = 1000,
         if lvl > 0:
             h = int(round(H / scale))
             w = int(round(W / scale))
-            imgs_l = _resize_matmul(images, h, w)
+            imgs_l = _resize_bilinear(images, h, w)
         score, _ = fast_score_batch(imgs_l, threshold)
         score = nms3(score)
         uv, resp, valid = select_keypoints(score, budgets[lvl])

@@ -14,6 +14,7 @@ module.  There is no fallback: a failed build or launch raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -24,6 +25,7 @@ FAST_SOURCE = "fast_score.cu"
 PATCH_SOURCE = "patch_gather.cu"
 FAST_LAUNCHES = 0     # kernel launches since the last reset (wrapper count)
 PATCH_LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()   # async mode launches from two threads
 _MAX_GRID_YZ = 65535
 FAST_TILE_Y = 16      # output rows of one FAST block (csrc/fast_score.cu)
 
@@ -113,7 +115,8 @@ def _launch_fast(imgs: torch.Tensor, threshold: float):
                              score.data_ptr(),
                              corner.view(torch.uint8).data_ptr(), stream)
     cuda_build.check_launch(err, "fast_score_batch")
-    FAST_LAUNCHES += 1
+    with _COUNT_LOCK:
+        FAST_LAUNCHES += 1
     return score, corner
 
 
@@ -167,7 +170,8 @@ def _launch_patch(imgs, y_tile, x_tile, size_y, size_x):
                                x_tile.data_ptr(), B, H, W, N, size_y, size_x,
                                vec, out.data_ptr(), stream)
     cuda_build.check_launch(err, "patch_gather")
-    PATCH_LAUNCHES += 1
+    with _COUNT_LOCK:
+        PATCH_LAUNCHES += 1
     return out
 
 

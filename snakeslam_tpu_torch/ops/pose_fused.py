@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -34,6 +35,7 @@ from snakeslam_tpu_torch.utils import cuda_build
 
 SOURCE = "pose_refine.cu"
 LAUNCHES = 0      # kernel launches since the last reset (wrapper count)
+_COUNT_LOCK = threading.Lock()   # async mode launches from two threads
 MAX_N = 16384     # features of one problem: 2048 a CTA, 8 CTAs
 _entry = None     # the bound C entry point, set at the first launch
 
@@ -245,7 +247,8 @@ def _launch(T_init, points, uv, right, weight, mask, cam, bf, chi2_mono,
              cuda_build.raw_stream(points))
     if err:
         cuda_build.check_launch(err, "pose_refine_fused")
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return T_out, inl, n_inl
 
 

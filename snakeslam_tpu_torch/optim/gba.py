@@ -173,7 +173,9 @@ class GlobalBA:
         for f in frames:
             if f.pose_cw is None or f.matches is None or f.is_keyframe:
                 continue
-            m = (f.matches >= 0) & smap.pt_valid[np.maximum(f.matches, 0)]
+            # a match whose point slot was reused since tracking names an
+            # unrelated point: dropped (the JAX package keeps it)
+            m = smap.live_matches(f)
             if m.sum() < 10:
                 continue
             # start from the pose composed through the reference keyframe:
@@ -276,5 +278,6 @@ class GlobalBA:
                     matches[sel] = lm_ids[assign[sel]]
                     if sel.sum() >= 10:
                         f.matches = matches
+                        smap.stamp_matches(f)
                         n_rematched += 1
         return n_rematched

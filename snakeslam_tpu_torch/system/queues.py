@@ -7,7 +7,8 @@ solver) receives keyframes through a queue that dispatches an item only once
 ``item_id + delay <= latest_id`` (:135-140), runs synchronously
 (deterministic mode) or on its own worker thread (:24-33), and supports the
 pause / wait-until-paused / resume protocol (:175-189) and force-clean
-(:159-173).
+(:159-173).  A worker that raises stops, and ``join`` / ``force_clean``
+re-raise its exception on the caller's thread.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from __future__ import annotations
 import threading
 from collections import deque
 from typing import Callable
+
+_JOIN_TIMEOUT_S = 600.0   # a worker's last item: one keyframe's back-end
 
 
 class DelayedQueue:
@@ -33,6 +36,7 @@ class DelayedQueue:
         self._paused = threading.Event()
         self._pause_requested = False
         self._stop = False
+        self.error: Exception | None = None
         self._thread = None
         if parallel:
             self._thread = threading.Thread(
@@ -96,11 +100,20 @@ class DelayedQueue:
                 self._paused.set()
                 continue
             # drain everything ready: one wake-up may cover several items
-            while not self._pause_requested:
-                item = self._ready()
-                if item is None:
-                    break
-                self.process(item)
+            try:
+                while not self._pause_requested:
+                    item = self._ready()
+                    if item is None:
+                        break
+                    self.process(item)
+            except Exception as e:  # re-raised on the caller's thread
+                self.error = e
+                return
+
+    def _raise_error(self):
+        if self.error is not None:
+            err, self.error = self.error, None
+            raise err
 
     def pause(self):
         self._pause_requested = True
@@ -120,6 +133,7 @@ class DelayedQueue:
 
     def force_clean(self):
         """Drain everything regardless of delay (ForceCleanQueue)."""
+        self._raise_error()
         while True:
             with self._lock:
                 if not self.queue:
@@ -128,10 +142,15 @@ class DelayedQueue:
             self.process(item)
 
     def join(self):
+        """Stop the worker after the item it is running, then drain the
+        still-ready items inline so the final keyframes' work is never lost
+        (the worker may have stopped between add and wake)."""
         self._stop = True
         if self._thread is not None:
             self._work.release()
-            self._thread.join(timeout=5.0)
-        # drain any still-ready items inline so the final keyframes' work
-        # is never lost (the worker may have stopped between add and wake)
+            self._thread.join(timeout=_JOIN_TIMEOUT_S)
+            if self._thread.is_alive():
+                raise TimeoutError(f"queue {self.name}: worker still busy "
+                                   f"after {_JOIN_TIMEOUT_S} s")
+        self._raise_error()
         self._drain_ready()

@@ -13,6 +13,12 @@ frame iterable frame by frame and ends in ``finalize`` (the end-of-run
 mitigation, global BA passes, outlier removal, rematch and realign); the
 fast path is ``WindowedRunner(SlamSystem(settings, device), window).run(
 frames)`` followed by ``finalize()``.
+
+``async_mode`` runs the front-end on a producer thread (system/pipeline.py)
+and the delayed back-end queues on worker threads, each queue's work under
+the map lock; ``async_lba`` runs the local BA on its own worker
+(``AsyncLBA``).  ``frame_listeners`` are called with every processed frame
+(the viewer's frame stream, viewer/export.py).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from snakeslam_tpu_torch.optim.deferred_mapper import DeferredMapper
 from snakeslam_tpu_torch.optim.gba import GlobalBA
 from snakeslam_tpu_torch.optim.lba import LocalBA
 from snakeslam_tpu_torch.optim.simplification import Simplification
+from snakeslam_tpu_torch.system.pipeline import AsyncLBA, AsyncPipeline
 from snakeslam_tpu_torch.system.queues import DelayedQueue
 from snakeslam_tpu_torch.system.settings import Settings
 from snakeslam_tpu_torch.system.stats import PerformanceStats
@@ -43,15 +50,10 @@ from snakeslam_tpu_torch.tracking.tracker import Tracker
 
 
 def _check_settings(s: Settings):
-    unported = [
-        (s.async_mode, "async_mode", "ROADMAP.md queue A, step 15"),
-        (s.async_lba, "async_lba", "ROADMAP.md queue A, step 15"),
-        (s.n_devices > 1, "n_devices > 1", "ROADMAP.md queue A, step 16"),
-    ]
-    for bad, what, step in unported:
-        if bad:
-            raise NotImplementedError(
-                f"SlamSystem: {what} is not ported yet ({step})")
+    if s.n_devices > 1:
+        raise NotImplementedError(
+            "SlamSystem: n_devices > 1 is not ported yet (ROADMAP.md queue "
+            "A, step 16)")
 
 
 def load_vocabulary(settings: Settings) -> BOW.Vocabulary:
@@ -85,6 +87,17 @@ class _QueueBackend:
         self.queue.update(kf)
 
 
+def _under_lock(lock, fn):
+    """``fn`` run under ``lock``: a queue's worker thread then mutates the
+    map only between tracked frames."""
+
+    def run(item):
+        with lock:
+            fn(item)
+
+    return run
+
+
 class SlamSystem:
     def __init__(self, settings: Settings, device):
         _check_settings(settings)
@@ -114,13 +127,18 @@ class SlamSystem:
         self.simplification = Simplification(settings, self.map,
                                              imu_solver=self.imu_solver)
         self.deferred_mapper = DeferredMapper(settings, self.map)
-        self._simp_queue = DelayedQueue(self.simplification.add, delay=8,
-                                        name="simplification")
-        self._deferred_queue = DelayedQueue(self.deferred_mapper.add, delay=9,
-                                            name="deferred")
+        par = bool(settings.async_mode)
+        self._simp_queue = DelayedQueue(
+            _under_lock(self.map.lock, self.simplification.add), delay=8,
+            parallel=par, name="simplification")
+        self._deferred_queue = DelayedQueue(
+            _under_lock(self.map.lock, self.deferred_mapper.add), delay=9,
+            parallel=par, name="deferred")
+        self._async_lba = AsyncLBA(self.lba) if settings.async_lba else None
 
         self.local_mapper = LocalMapper(
-            settings, self.map, self.device, lba=self.lba,
+            settings, self.map, self.device,
+            lba=self._async_lba or self.lba,
             imu_solver=self.imu_solver,
             backends=[self.loop_closing,
                       _QueueBackend(self._simp_queue),
@@ -134,21 +152,31 @@ class SlamSystem:
                                relocalizer=self.relocalizer)
         self.stats = PerformanceStats()
         self.n_frames = 0
+        self.frame_listeners: list = []   # per-frame viewer stream hooks
 
     def process_frame(self, frame: FrameData):
         with self.stats.timer("Tracking"):
             with self.map.lock:
                 st = self.tracker.process_frame(frame)
+                self.map.stamp_matches(frame)
         self.n_frames += 1
+        for cb in self.frame_listeners:
+            cb(frame)
         return st
 
     def run(self, frames) -> float:
-        """Drive a frame iterable through the pipeline frame by frame, then
-        ``finalize``.  Returns the wall time of the frames, in seconds
-        (finalize excluded)."""
+        """Drive a frame iterable through the pipeline frame by frame (the
+        front-end on a producer thread in async mode), join the back-end
+        workers, then ``finalize``.  Returns the wall time of the frames, in
+        seconds (finalize excluded)."""
         t0 = time.perf_counter()
-        for frame in frames:
-            self.process_frame(frame)
+        if self.s.async_mode:
+            AsyncPipeline(self, frames).run()
+        else:
+            for frame in frames:
+                self.process_frame(frame)
+        if self._async_lba is not None:
+            self._async_lba.join()
         wall = time.perf_counter() - t0
         self.finalize()
         return wall
@@ -163,6 +191,12 @@ class SlamSystem:
         realign of the tracked non-keyframe frames against the final
         map."""
         smap = self.map
+        # stop the back-end workers (async mode) before the map is touched
+        # from this thread
+        if self._async_lba is not None:
+            self._async_lba.join()
+        self._simp_queue.join()
+        self._deferred_queue.join()
         # end-of-run bad-section mitigation: the trailing ~30 frames never
         # received the usual back-end polish, so their keyframes' culling
         # bias goes past the force threshold and simplification sees them

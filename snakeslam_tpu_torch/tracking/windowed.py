@@ -1,10 +1,10 @@
 """Windowed tracking runner: a speculative device pipeline.
 
-Counterpart of ``snakeslam_tpu/tracking/windowed.py`` in its inline
-(deterministic) mode.  Steady-state tracking runs W frames per
-``window_track`` call with up to ``depth`` windows in flight.  Windows
-chain their carry (pose / velocity / keyframe-decision state) on the
-device, so dispatching window k+1 never waits for window k.  Each window's
+Counterpart of ``snakeslam_tpu/tracking/windowed.py``.  Steady-state
+tracking runs W frames per ``window_track`` call with up to ``depth``
+windows in flight.  Windows chain their carry (pose / velocity /
+keyframe-decision state) on the device, so dispatching window k+1 never
+waits for window k.  Each window's
 packed frames go up from a pinned host buffer with a non-blocking copy;
 its results come back by non-blocking copies into pinned host tensors,
 queued at dispatch behind the window's compute (``staging.HostCopy``).
@@ -21,19 +21,28 @@ whole-map transform (``SlamMap.transform``) since the chain began ends the
 chain at the next refresh point and drops the windows in flight: they were
 computed in the old basis.
 
+Async mode (``async_backends``, by default the settings' ``async_mode``:
+the reference's async deployment setting) moves keyframe insertion and
+the back-ends onto one worker thread, so all map mutation stays serialized
+there while the main thread dispatches and consumes windows; the snapshot
+refresh waits until the worker is idle.  Async mode makes no determinism
+claim.
+
 Initialization, failures and recovery go through the per-frame Tracker
-path.  Deterministic: windows are consumed one per blocking fetch, so the
-dispatch / consume / commit order is a pure function of the input
-sequence.  (The JAX package also consumes, in the same fetch, later
-windows whose copies have already landed: on its remote TPU that saved
-round trips, but the grouping then depends on timing.  A synchronous CPU
-run or a host-bound GPU run would find every window landed and insert all
-their keyframes before the first keyframe cycle; one window per fetch is
-the schedule the JAX package runs when the device is the slower side.)
+path.  Inline mode is deterministic: windows are consumed one per
+blocking fetch, so the dispatch / consume / commit order is a pure
+function of the input sequence. (The JAX package also consumes, in the
+same fetch, later windows whose copies have already landed: on its
+remote TPU that saved round trips, but the grouping then depends on
+timing. A synchronous CPU run or a host-bound GPU run would find every
+window landed and insert all their keyframes before the first keyframe
+cycle; one window per fetch is the schedule the JAX package runs when
+the device is the slower side.)
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -86,7 +95,7 @@ def gyro_delta_rotation(omega: np.ndarray, dt: np.ndarray,
 
 class WindowedRunner:
     def __init__(self, system, window: int = 64, two_stage: bool = True,
-                 depth: int = DEPTH):
+                 depth: int = DEPTH, async_backends: bool | None = None):
         self.system = system
         self.tracker = system.tracker
         self.device = system.device
@@ -108,6 +117,43 @@ class WindowedRunner:
         self.n_chain_restarts = 0   # chains ended by a whole-map transform
         self._backend_token = None
         self._med_override = -1.0
+        if async_backends is None:
+            async_backends = bool(system.s.async_mode)
+        self.async_backends = async_backends
+        self._pool = (ThreadPoolExecutor(max_workers=1,
+                                         thread_name_prefix="snake-backend")
+                      if async_backends else None)
+        self._pending = []
+
+    # -- the serialized map-mutation worker (async mode) -------------------
+
+    def _submit(self, fn, *args):
+        """Run ``fn`` inline, or queue it on the worker in async mode."""
+        if self._pool is None:
+            return fn(*args)
+        self._pending.append(self._pool.submit(fn, *args))
+        return None
+
+    def _drain(self):
+        """Wait until all queued map work has completed (raising any
+        worker exception here), then commit the pending inline cycle."""
+        pending, self._pending = self._pending, []
+        for f in pending:
+            f.result()
+        self._commit_backend()
+
+    def _backend_ready(self) -> bool:
+        """Gate of the snapshot refresh: inline mode is always ready (the
+        commit blocks at a fixed point of the consume schedule); async mode
+        waits until the worker is idle."""
+        if not self._pending:
+            return True
+        if all(f.done() for f in self._pending):
+            for f in self._pending:
+                f.result()
+            self._pending = []
+            return True
+        return False
 
     # -- inline back-end pipeline ------------------------------------------
 
@@ -207,12 +253,12 @@ class WindowedRunner:
         while i < n:
             if t.state != TrackingState.OK or t.last_frame is None \
                     or t.last_frame.pose_cw is None:
-                self._commit_backend()
+                self._drain()
                 t.local_mapper.flush_deferred()
                 self.system.process_frame(frames[i])
                 i += 1
                 continue
-            self._commit_backend()
+            self._drain()
             lm, lm_ids, lm_gen = self._local_map()
             if lm is None:
                 t.local_mapper.flush_deferred()
@@ -220,7 +266,7 @@ class WindowedRunner:
                 i += 1
                 continue
             i = self._run_chain(frames, i, lm, lm_ids, lm_gen)
-        self._commit_backend()
+        self._drain()
         t.local_mapper.flush_deferred()
         return n
 
@@ -328,7 +374,7 @@ class WindowedRunner:
                 Returns True when the chain must restart (map rebase)."""
                 nonlocal refresh_pending, stop_dispatch, lm, lm_ids, lm_gen
                 refresh_pending = False
-                self._commit_backend()
+                self._drain()
                 if rebased():
                     return True
                 new_lm, new_ids, new_gen = self._local_map()
@@ -347,7 +393,7 @@ class WindowedRunner:
 
             if refresh_in > 0:
                 refresh_in -= 1
-            if refresh_pending and refresh_in == 0:
+            if refresh_pending and refresh_in == 0 and self._backend_ready():
                 # deterministic commit point: two blocking window fetches
                 # after the cycle's dispatch.  On a restart the fetched
                 # window is dropped unconsumed with the rest in flight
@@ -359,7 +405,12 @@ class WindowedRunner:
                 inflight.clear()
                 break
             consumed_to = item.start + len(item.batch)
-            if r:
+            if r and self._pool is not None:
+                # the worker runs the cycles; the refresh waits for it
+                self._submit(t.local_mapper.flush_deferred)
+                refresh_in = 2
+                refresh_pending = True
+            elif r:
                 self._dispatch_backend_cycles()
                 if rebased():
                     # the pipelined commit of the previous cycle carried
@@ -379,11 +430,11 @@ class WindowedRunner:
             top_up()
 
         if failed_at >= 0:
-            self._commit_backend()
+            self._drain()
             t.local_mapper.flush_deferred()
             self.system.process_frame(frames[failed_at])
             return failed_at + 1
-        self._commit_backend()
+        self._drain()
         t.local_mapper.flush_deferred()
         return consumed_to
 
@@ -417,31 +468,46 @@ class WindowedRunner:
                 _update_velocity(w)
                 return -(item.start + w + 1)
             if row[17] < 0.5:   # not ok
-                self._commit_stats(item, vis, fnd)
+                self._submit(self._commit_stats, item, vis, fnd)
                 _update_velocity(w)
                 return -(item.start + w + 1)
             if self.imu_solver is not None:
                 # keep the keyframe edges' preintegration windows complete
-                self.imu_solver.add_frame_samples(frame)
+                # (serialized with the worker's update_map)
+                self._submit(self.imu_solver.add_frame_samples, frame)
             frame.pose_cw = poses[w]
             frame.matches = matches_all[w, : frame.n].copy()
+            t.map.stamp_matches(frame)
             frame.outlier = np.zeros(frame.n, dtype=bool)
-            frame.ref_kf = t.last_kf
-            frame.capture_rel(t.map.kf_pose[t.last_kf],
-                              t.map.kf_frame_id[t.last_kf])
+            # last_kf is written by keyframe insertion: read it where that
+            # runs, after any insertion queued for an earlier frame
+            self._submit(self._set_ref_kf, frame)
             t.last_tracked_frame = frame
             t.last_frame = frame
             t.trajectory.append(frame)
             self.system.n_frames += 1
             if row[18] > 0.5:   # need_kf
-                kf = t.local_mapper.insert_keyframe(frame, t.last_kf,
-                                                    defer=True)
-                if kf >= 0:
-                    t.last_kf = kf
+                if self._pool is None:
+                    inserted |= self._insert_kf(frame)
+                else:
+                    self._submit(self._insert_kf, frame)
                     inserted = True
         _update_velocity(len(item.batch))
-        self._commit_stats(item, vis, fnd)
+        self._submit(self._commit_stats, item, vis, fnd)
         return True if inserted else None
+
+    def _set_ref_kf(self, frame):
+        t = self.tracker
+        frame.ref_kf = t.last_kf
+        frame.capture_rel(t.map.kf_pose[t.last_kf],
+                          t.map.kf_frame_id[t.last_kf])
+
+    def _insert_kf(self, frame) -> bool:
+        t = self.tracker
+        kf = t.local_mapper.insert_keyframe(frame, t.last_kf, defer=True)
+        if kf >= 0:
+            t.last_kf = kf
+        return kf >= 0
 
     def _commit_stats(self, item, vis, fnd):
         """Per-point visible/found sums; slots recycled since the window's

@@ -34,16 +34,19 @@ def _patches(n_points: int, seed: int, patch: int = PATCH) -> np.ndarray:
 
 
 def render_frame(world, T_cw: np.ndarray, baseline: float = 0.0,
-                 patches: np.ndarray | None = None) -> np.ndarray:
+                 patches: np.ndarray | None = None, with_depth: bool = False):
     """Render one grayscale (H, W) float32 view of the world.
 
     Args:
       T_cw: 4x4 world->camera pose; ``baseline`` shifts the camera left
         by that many meters along +x camera (for the stereo right view
         pass baseline=world.baseline).
+      with_depth: also return the (H, W) float32 depth image: each
+        billboard's pixels carry its camera-frame z, the background 0.
     """
     W, H = world.image_size
     img = np.full((H, W), 110.0, dtype=np.float32)
+    depth = np.zeros((H, W), dtype=np.float32) if with_depth else None
     if patches is None:
         patches = _patches(len(world.points), world.seed)
     psz = patches.shape[1]
@@ -75,7 +78,9 @@ def render_frame(world, T_cw: np.ndarray, baseline: float = 0.0,
                    + dy * (1 - dx) * p[0:psz, 1:1 + psz]
                    + dy * dx * p[0:psz, 0:psz])
         img[vi[i] - r:vi[i] + r + 1, ui[i] - r:ui[i] + r + 1] = shifted
-    return img
+        if with_depth:
+            depth[vi[i] - r:vi[i] + r + 1, ui[i] - r:ui[i] + r + 1] = z[i]
+    return (img, depth) if with_depth else img
 
 
 def render_sequence(world, trajectory, stereo: bool = True,

@@ -15,7 +15,9 @@ for bit.  The FAST kernel sums in its plain version's order and the patch
 gather only copies, so both are held bit-identical; FAST at W = 752 (the
 float4 path), 627 and 157 (scalar), H = 7 (less than a tile) and 120, B = 1
 and 64, a misaligned input and corners on tile and 4-pixel-run
-boundaries.
+boundaries, and the four pyramid levels of a rendered 640x480 TUM frame as
+``FeatureDetector.detect`` hands them over (the dataset CLI's inputs);
+the whole ORB front-end on the card gives the CPU's features bit for bit.
 
 The keyframe back-end's ops (plain torch, no hand kernel) run on the card
 without a host sync (``torch.cuda.set_sync_debug_mode("error")``): the
@@ -31,6 +33,12 @@ visual-inertial initialization; the same tolerances, reruns bit-identical);
 ``window_track`` with ``use_imu=True`` on the card against the CPU (poses
 1e-4, decisions identical); ``solve_scale_gravity`` and ``solve_imu_chain``
 in float64 on the card within 1e-9 of the CPU.
+
+The dataset CLI's device paths: the RGB-D depth filter on the rendered TUM
+lane's depth (with flying pixels and holes added) and TSDF integration of
+its first frames, each on the card against the CPU (kept pixels and
+weights identical, values within 1e-5); async mode on the card (producer
+thread, async local BA) with exact FAST and pose launch counts.
 """
 
 import numpy as np
@@ -223,7 +231,7 @@ def test_fast_kernel_bit_identical(cuda_device, kind):
     L, R, _, _ = _rendered_views(4)
     imgs = torch.from_numpy(np.concatenate([L, R])).to(cuda_device).float()
     if kind == "resized":
-        imgs = ORB._resize_matmul(imgs, 167, 222)
+        imgs = ORB._resize_bilinear(imgs, 167, 222)
     elif kind == "odd":
         imgs = imgs[:3, :101, :157].contiguous()
     launches = OK.FAST_LAUNCHES
@@ -267,6 +275,63 @@ def test_fast_kernel_shapes_bit_identical(cuda_device, W, B, H):
         assert int(c.sum()) > 50 * B
         # corners on both sides of the tile edge at x = 127 / 128
         assert bool(c[..., 120:136].any())
+
+
+def test_fast_kernel_on_a_tum_frame_pyramid(cuda_device, tmp_path,
+                                            monkeypatch):
+    """The dataset CLI's FAST inputs: one rendered 640x480 frame of the TUM
+    lane through ``FeatureDetector.detect`` on the card under
+    ``configs/tum.ini`` (four levels, B = 1 each), each level against the
+    plain version, exact."""
+    from snakeslam_tpu_torch.frontend.feature_detector import FeatureDetector
+    from snakeslam_tpu_torch.system.settings import Settings
+    from snakeslam_tpu_torch.utils import tum_fixture as TF
+    from snakeslam_tpu_torch.utils.render_world import render_frame
+
+    s = Settings.from_ini(TF.copy_config(tmp_path / "tum.ini"))
+    _, T = TF.lane_trajectory()[TF.LANE_FRAMES // 2]
+    gray, _ = render_frame(TF.lane_world(), T, with_depth=True)
+    seen = []
+    inner = OK.fast_score_batch
+
+    def record(imgs, threshold):
+        seen.append((imgs.clone(), threshold))
+        return inner(imgs, threshold)
+
+    monkeypatch.setattr(OK, "fast_score_batch", record)
+    FeatureDetector(s, device=cuda_device).detect(
+        np.clip(gray, 0, 255).astype(np.uint8), 0, 0.0)
+    monkeypatch.undo()
+    assert len(seen) == s.fd_levels == 4
+    assert tuple(seen[0][0].shape) == (1, 480, 640)
+    for imgs, th in seen:
+        sc, co = OK.fast_score_batch(imgs, th)
+        sr, cr = OK.fast_score_batch_reference(imgs, th)
+        torch.cuda.synchronize()
+        assert torch.equal(co, cr) and torch.equal(sc, sr)
+        assert int(co.sum()) > 50
+
+
+def test_orb_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    """``FeatureDetector`` on the card gives the CPU's features bit for
+    bit on rendered 640x480 TUM frames under ``configs/tum.ini``:
+    keypoints, octaves, angles and descriptors (the pyramid's resize and
+    the orientation moments round alike on both devices)."""
+    from snakeslam_tpu_torch.frontend.feature_detector import FeatureDetector
+    from snakeslam_tpu_torch.system.settings import Settings
+    from snakeslam_tpu_torch.utils import tum_fixture as TF
+    from snakeslam_tpu_torch.utils.render_world import render_frame
+
+    s = Settings.from_ini(TF.copy_config(tmp_path / "tum.ini"))
+    world, traj = TF.lane_world(), TF.lane_trajectory()
+    det = {d: FeatureDetector(s, device=d) for d in ("cpu", cuda_device)}
+    for i in (0, TF.LANE_FRAMES - 1):
+        gray, _ = render_frame(world, traj[i][1], with_depth=True)
+        gray = np.clip(gray, 0, 255).astype(np.uint8)
+        fc, fg = (det[d].detect(gray, i, 0.0) for d in ("cpu", cuda_device))
+        assert fc.n > 900
+        for name in ("uv", "octave", "angle", "descriptors"):
+            assert np.array_equal(getattr(fc, name), getattr(fg, name)), name
 
 
 def test_fast_kernel_misaligned_input(cuda_device):
@@ -633,3 +698,91 @@ def test_imu_solvers_on_the_card(cuda_device, K, n_kf):
     for a, b in zip(res["cpu"], res[str(cuda_device)]):
         np.testing.assert_allclose(b, a, atol=1e-9)
     assert abs(float(res["cpu"][0]) - 2.0) < 0.1
+
+
+def _lane_depths(tmp_path, n: int, scale: float = 0.5):
+    """The rendered TUM lane's first ``n`` depth frames, as the reader
+    gives them, with their world->camera poses."""
+    from snakeslam_tpu_torch.frontend.datasets import TumRgbdDataset
+    from snakeslam_tpu_torch.utils import tum_fixture as TF
+
+    traj = TF.lane_trajectory(n)
+    TF.write_tum_fixture(tmp_path, TF.lane_world(scale=scale), traj)
+    return [r.depth for r in TumRgbdDataset(tmp_path)], [T for _, T in traj]
+
+
+@pytest.mark.parametrize("radius", [0, 2])
+def test_depth_filter_on_the_card(cuda_device, tmp_path, radius):
+    """The RGB-D depth filter on the card against the CPU: the kept pixels
+    identical, depths within 1e-5 relative (the lane's rendered depth with
+    flying pixels and holes added)."""
+    from snakeslam_tpu_torch.frontend.depth_processor import process_depth
+
+    depths, _ = _lane_depths(tmp_path, 3)
+    rng = np.random.default_rng(radius)
+    for d in depths:
+        d = d.astype(np.float32)
+        fly = rng.random(d.shape) < 0.01
+        d[fly] = rng.uniform(0.3, 9.0, int(fly.sum()))
+        d[rng.random(d.shape) < 0.02] = 0.0
+        t = torch.from_numpy(d)
+        c = process_depth(t, 40.0, gauss_radius=radius).numpy()
+        g = process_depth(t.to(cuda_device), 40.0,
+                          gauss_radius=radius).cpu().numpy()
+        assert np.array_equal(g > 0, c > 0) and (c > 0).mean() > 0.2
+        np.testing.assert_allclose(g, c, rtol=1e-5, atol=0)
+
+
+def test_tsdf_on_the_card(cuda_device, tmp_path):
+    """TSDF integration of the lane's first frames on the card against the
+    CPU: TSDF within 1e-5, weights equal, the same surface points."""
+    from snakeslam_tpu_torch.ops import tsdf as TT
+    from snakeslam_tpu_torch.utils import tum_fixture as TF
+
+    depths, poses = _lane_depths(tmp_path, 4)
+    vols = {}
+    for dev in ("cpu", cuda_device):
+        v = TT.create_volume(64, extent=6.0, origin=(-3.0, -3.0, -3.0),
+                             device=dev)
+        for d, T in zip(depths, poses):
+            v = TT.integrate(v, torch.from_numpy(d), torch.from_numpy(T),
+                             TF.FR1["fx"] / 2, TF.FR1["fy"] / 2,
+                             TF.FR1["cx"] / 2, TF.FR1["cy"] / 2, 0.15)
+        vols[str(dev)] = v
+    c, g = vols["cpu"], vols[str(cuda_device)]
+    np.testing.assert_allclose(g.tsdf.cpu().numpy(), c.tsdf.numpy(),
+                               atol=1e-5, rtol=0)
+    assert torch.equal(g.weight.cpu(), c.weight)
+    pc, pg = TT.extract_surface_points(c), TT.extract_surface_points(g)
+    assert len(pc) > 100 and np.array_equal(pg, pc)
+
+
+def test_async_pipeline_on_the_card(cuda_device, tmp_path):
+    """Async mode on the card: the producer thread runs ORB (FAST kernel
+    launches), tracking and the async local BA run beside it; the launch
+    counts stay exact and the run tracks."""
+    from snakeslam_tpu_torch.frontend.datasets import TumRgbdDataset
+    from snakeslam_tpu_torch.frontend.input import Input
+    from snakeslam_tpu_torch.system.settings import InputType, Settings
+    from snakeslam_tpu_torch.system.slam import SlamSystem
+    from snakeslam_tpu_torch.utils import tum_fixture as TF
+
+    traj = TF.lane_trajectory(64)[::4]
+    TF.write_tum_fixture(tmp_path, TF.lane_world(scale=0.5), traj)
+    s = Settings()
+    s.input_type = InputType.RGBD
+    s.enable_imu = False
+    s.async_mode = s.async_lba = True
+    s.fd_features, s.fd_levels = 500, 2
+    s.width, s.height = 320, 240
+    s.fx, s.fy = TF.FR1["fx"] / 2, TF.FR1["fy"] / 2
+    s.cx, s.cy = TF.FR1["cx"] / 2, TF.FR1["cy"] / 2
+    s.bf = TF.FR1_BF
+    inp = Input(s, dataset=TumRgbdDataset(tmp_path), device=cuda_device)
+    system = SlamSystem(s, cuda_device)
+    fast0, pose0 = OK.FAST_LAUNCHES, PF.LAUNCHES
+    system.run(iter(inp))
+    assert len(system.tracker.trajectory) == len(traj)
+    assert OK.FAST_LAUNCHES - fast0 == 2 * len(traj)
+    assert PF.LAUNCHES - pose0 == 2      # finalize's two realigns
+    assert system.lba.n_runs >= 1

@@ -99,9 +99,13 @@ def scene():
 
 
 def _port_frames(frames):
-    return [TFrame(**{f.name: (getattr(jf, f.name).copy()
-                               if isinstance(getattr(jf, f.name), np.ndarray)
-                               else getattr(jf, f.name))
+    # the port's frame has fields the JAX one lacks (match_gen): left unset
+    # here, stamped by the caller as the port's tracker stamps them
+    def value(jf, name):
+        v = getattr(jf, name, None)
+        return v.copy() if isinstance(v, np.ndarray) else v
+
+    return [TFrame(**{f.name: value(jf, f.name)
                       for f in dataclasses.fields(TFrame)})
             for jf in frames]
 
@@ -161,6 +165,11 @@ def test_rematch_and_realign_match_jax(scene):
     jg, tg, jm, tm = _gbas(truth, js)
     jf = [dataclasses.replace(f) for f in frames]
     tf = _port_frames(frames)
+    # stamped as SlamSystem.process_frame stamps a tracked frame: the
+    # realign reads SlamMap.live_matches, as on every run of the port
+    for f in tf:
+        tm.stamp_matches(f)
+        assert f.match_gen is not None
     nj = jg.realign_intermediate_frames(jf)
     nt = tg.realign_intermediate_frames(tf)
     assert nt == nj == len(frames)
@@ -172,3 +181,42 @@ def test_rematch_and_realign_match_jax(scene):
     assert rt == rj > 0
     for a, b in zip(jf, tf):
         np.testing.assert_array_equal(b.matches, a.matches)
+        # the rematch stamps its new matches
+        np.testing.assert_array_equal(
+            b.match_gen, tm.pt_alloc_gen[np.maximum(b.matches, 0)])
+
+
+def test_realign_drops_matches_of_reused_point_slots(scene):
+    """A point erased after a frame was tracked frees its slot, and a later
+    allocation reuses the slot for another point: the frame's match names
+    that point now.  The port's realign drops such matches (the frame's
+    ``match_gen`` stamp against ``pt_alloc_gen``) and refines exactly as
+    with them unmatched; the JAX package's realign keeps them."""
+    import copy
+
+    truth, _, _, js, frames = scene
+    _, tg, _, tm = _gbas(truth, js)
+    f = _port_frames(frames)[4]
+    tm.stamp_matches(f)
+    # a third of the matched slots reused by points 2 cm away: within the
+    # robust refine's inlier gate, so a kept match pulls the pose
+    reused = np.unique(f.matches[f.matches >= 0])[:300]
+    moved = tm.pt_pos[reused] + [0.02, 0.0, 0.0]
+    for p in reused:
+        tm.erase_point(int(p))
+    for pos in moved[::-1]:     # the free list hands slots back LIFO
+        tm.allocate_point(pos, np.zeros(32, np.uint8), 0, 7.0, 0,
+                          np.zeros(3))
+    np.testing.assert_array_equal(tm.pt_pos[reused], moved)
+    live = tm.live_matches(f)
+    hit = np.isin(f.matches, reused)
+    assert hit.sum() >= 300 and not live[hit].any()
+    assert live[~hit].sum() == (f.matches[~hit] >= 0).sum()
+    unmatched = copy.deepcopy(f)
+    unmatched.matches = np.where(hit, -1, f.matches)
+    tm.stamp_matches(unmatched)
+    stale = copy.deepcopy(f)
+    stale.match_gen = None          # the JAX package's behaviour
+    assert tg.realign_intermediate_frames([f, unmatched, stale]) == 3
+    np.testing.assert_array_equal(f.pose_cw, unmatched.pose_cw)
+    assert np.abs(stale.pose_cw - f.pose_cw).max() > 1e-3

@@ -12,7 +12,7 @@ Tolerances:
     the 16 ring terms in another order), exact against the Pallas kernel
     (the same ring order);
   * patch gather, ``nms3``, ``select_keypoints`` (ties included): exact;
-  * ``_resize_matmul``: atol 2e-4 (f32 products rounded differently);
+  * ``_resize_bilinear``: atol 2e-4 (f32 products rounded differently);
   * ``orient_and_brief``: angles within 1e-3 deg, >= 99.5% of descriptors
     bit-equal (a keypoint on a 12-deg bin edge may flip bins);
   * ``extract_orb_batch``: level-0 keypoints, octaves and responses
@@ -195,8 +195,47 @@ def test_resize_matmul():
     imgs = _textured(4, 2, 240, 320)
     for h, w in ((200, 267), (167, 222)):
         want = np.asarray(JORB._resize_matmul(jnp.asarray(imgs), h, w))
-        got = TORB._resize_matmul(_t(imgs), h, w).numpy()
+        got = TORB._resize_bilinear(_t(imgs), h, w).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+
+
+def test_resize_and_angles_round_as_numpy():
+    """The pyramid's resize is, per output, two products and a sum, each
+    rounded on its own, and the orientation's moments are float64 sums
+    that no summation order changes: numpy's elementwise arithmetic, in
+    another order, gives the same bits, as a CUDA device does (no library
+    reduction or fused multiply-add decides them)."""
+    imgs = _textured(8, 2, 240, 320)
+    for h, w in ((200, 267), (167, 222)):
+        x = imgs
+        for dim, n in ((1, h), (2, w)):
+            c0, c1, w0, w1 = TORB._interp_taps(n, x.shape[dim])
+            m = TORB._interp_matrix(n, x.shape[dim])
+            rows = np.arange(n)
+            assert np.array_equal(m[rows, c0], w0)
+            assert np.array_equal(np.where(c1 != c0, m[rows, c1], 0), w1)
+            assert ((m != 0).sum(axis=1) == 1 + (c1 != c0)).all()
+            shape = [1, 1, 1]
+            shape[dim] = n
+            x = (np.take(x, c0, axis=dim) * w0.reshape(shape)
+                 + np.take(x, c1, axis=dim) * w1.reshape(shape))
+        level = TORB._resize_bilinear(_t(imgs), h, w)
+        np.testing.assert_array_equal(level.numpy(), x)
+        score = TORB.nms3(OK.fast_score_batch_reference(level, 20.0)[0])
+        uv, _, valid = TORB.select_keypoints(score, 200)
+        ang, _ = TORB.orient_and_brief(level, uv)
+        src = TORB._extract_patches(level, uv, TORB._BRIEF_SRC).numpy()
+        o, n = TORB._CENTER_OFF, TORB._PATCH
+        c = src[..., o:o + n, o:o + n].astype(np.float64)[..., ::-1, ::-1]
+        wx = (TORB._disc_x * TORB._DISC_MASK)[::-1, ::-1]
+        wy = (TORB._disc_y * TORB._DISC_MASK)[::-1, ::-1]
+        want = np.degrees(np.arctan2((c * wy).sum(axis=(-2, -1)),
+                                     (c * wx).sum(axis=(-2, -1))))
+        want = want.astype(np.float32)
+        want = np.where(want < 0, want + np.float32(360.0), want)
+        assert int(valid.sum()) > 100
+        np.testing.assert_array_equal(ang.numpy()[valid.numpy()],
+                                      want[valid.numpy()])
 
 
 def test_box_blurs():

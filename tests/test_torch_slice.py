@@ -259,6 +259,41 @@ f = det.detect(L[0], 0, 0.0)
 assert Preprocess(ps, device="cpu").stereo_match(
     f, det.detect(R[0], 1, 0.0)) > 0
 native.available()
+
+# the dataset CLI and its modules: a 3-frame rendered TUM sequence through
+# the CLI on the CPU, the depth filter, TSDF, checkpoints, chaos, rectify
+import contextlib, io, shutil, tempfile
+from pathlib import Path
+import torch
+import snakeslam_tpu_torch.__main__ as cli
+import snakeslam_tpu_torch.frontend.stereo_rectify
+import snakeslam_tpu_torch.map.chaos
+import snakeslam_tpu_torch.system.pipeline
+import snakeslam_tpu_torch.viewer.plot
+from snakeslam_tpu_torch.frontend.depth_processor import DepthProcessor
+from snakeslam_tpu_torch.map.serialization import load_map, save_map
+from snakeslam_tpu_torch.ops import tsdf
+from snakeslam_tpu_torch.utils import tum_fixture
+
+tmp = Path(tempfile.mkdtemp())
+tum_fixture.write_tum_fixture(tmp / "tum", tum_fixture.lane_world(scale=0.25),
+                              tum_fixture.lane_trajectory(3))
+shutil.copy("configs/tum.ini", tmp / "tum.ini")
+with contextlib.redirect_stdout(io.StringIO()):
+    assert cli.main([str(tmp / "tum.ini"), "--dataset", str(tmp / "tum"),
+                     "--outDir", str(tmp / "out"), "--device", "cpu",
+                     "--profile", "--overlayEvery", "2"]) == 0
+assert (tmp / "out" / "trajectory_frames_ba.tum").exists()
+assert (tmp / "out" / "trace" / "trace.json").exists()
+assert sorted(p.name for p in (tmp / "out" / "frames").iterdir()) == [
+    "frame_000000.png", "frame_000002.png"]
+d = DepthProcessor(fx=500.0, bf=40.0, device="cpu").process(
+    np.full((24, 32), 2.0, np.float32))
+vol = tsdf.integrate(tsdf.create_volume(8, device="cpu"),
+                     torch.full((24, 32), 1.0), torch.eye(4), 30.0, 30.0,
+                     16.0, 12.0, 0.1)
+save_map(system.map, tmp / "map.npz")
+assert load_map(tmp / "map.npz").n_keyframes == system.map.n_keyframes
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "snakeslam_tpu.")))
 print("LEAKED", bad)
@@ -279,9 +314,10 @@ def test_port_imports_no_jax():
                                          ("async_mode", True),
                                          ("n_devices", 2)])
 def test_unported_settings_raise(field, value):
-    """Async mode and multi-device settings still raise, naming their
-    ROADMAP step; monocular input and ``enable_imu`` construct (with the
-    mono initializer and the IMU state solver wired in)."""
+    """Multi-device settings still raise, naming their ROADMAP step;
+    monocular input, ``enable_imu`` and ``async_mode`` construct (with the
+    mono initializer, the IMU state solver and the queues' worker threads
+    wired in)."""
     from snakeslam_tpu_torch.system.settings import InputType, Settings
     from snakeslam_tpu_torch.system.slam import SlamSystem
 
@@ -289,12 +325,17 @@ def test_unported_settings_raise(field, value):
     s.input_type = InputType.Stereo
     s.enable_imu = False
     setattr(s, field, InputType.Mono if value == "mono" else value)
-    if field in ("async_mode", "n_devices"):
+    if field == "n_devices":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             SlamSystem(s, "cpu")
         return
     system = SlamSystem(s, "cpu")
-    if field == "input_type":
+    if field == "async_mode":
+        assert system._simp_queue.parallel and system._deferred_queue.parallel
+        assert system._async_lba is None
+        system.finalize()   # joins the workers
+        assert not system._simp_queue._thread.is_alive()
+    elif field == "input_type":
         assert system.tracker.mono_initializer is not None
         assert system.loop_closing.use_scale
         assert float(system.tracker.coarse_radius) == 15.0
@@ -324,12 +365,16 @@ def test_unported_entry_points_raise():
     # the global BA takes the IMU solver's relative-pose factors
     assert GlobalBA(s, system.map, "cpu",
                     imu_solver=system.imu_solver).imu_solver is not None
-    for field, value in (("async_mode", True), ("async_lba", True),
-                         ("n_devices", 2)):
-        bad = Settings()
-        setattr(bad, field, value)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            SlamSystem(bad, "cpu")
+    # async mode and the async local BA construct; multi-device raises
+    s = Settings()
+    s.async_mode = s.async_lba = True
+    system = SlamSystem(s, "cpu")
+    assert system.local_mapper.lba is system._async_lba
+    assert system.run([]) >= 0.0
+    bad = Settings()
+    bad.n_devices = 2
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        SlamSystem(bad, "cpu")
     bad = Settings()
     bad.n_devices = 2
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

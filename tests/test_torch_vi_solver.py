@@ -261,3 +261,14 @@ def test_tracker_transform_listener_matches_jax(chain0):
     # the rebased frame poses still sit on the rebased keyframes
     np.testing.assert_allclose(tt.trajectory[2].pose_cw, tm.kf_pose[kfs[2]],
                                atol=1e-9)
+
+
+def test_solver_needs_an_explicit_device():
+    """Like every constructor of the port, the IMU state solver takes its
+    device from the caller: without one it refuses to construct."""
+    s = Settings()
+    s.enable_imu = True
+    smap = SlamMap(max_keyframes=4, max_points=8, max_features=4)
+    with pytest.raises(TypeError, match="device"):
+        TS.ImuStateSolver(s, smap)
+    assert TS.ImuStateSolver(s, smap, "cpu").device.type == "cpu"
