@@ -71,7 +71,24 @@ exits non-zero:
      the global-BA polish on both devices; then the pose-graph solve and
      the Sim3 RANSAC of that closure rerun on the card without a host sync
      (the PGO bit-identical);
- 16. mono-VI lane: the JAX bench's mono_vi lane (6000-point world, seed 7,
+ 16. sharded loop lane: the loop lane again with ``n_devices = 4``: every
+     full BA (the loop correction's, ``finalize``'s) through the sharded
+     step of parallel/multichip.py over a 4-shard mesh (all four shards on
+     ``cuda:0`` of a one-card machine); gated against the JAX package's
+     CPU run on four virtual devices (scripts/jax_multichip_reference.py;
+     PERF.md) and, after ``finalize``, within 1.5x of phase 13's ATE;
+     sharded full BAs counted against the loop corrections and
+     ``finalize``'s three passes;
+ 17. multichip: the mesh's placement; the sharded BA step (float64, 3
+     iterations) on that lane's whole-map problem (C 128, P 8192, M 16
+     slots) on 4 shards against 1 shard, against 4 CPU shards (1e-9
+     relative) and a rerun (bit-identical), ms per iteration and peak
+     memory for 1 and 4 shards; the sharded matcher at 4096 x 1024
+     against ``hamming_matrix`` (exact);
+ 18. dry run: ``dryrun_multichip(4)`` on the card;
+ 19. entry: ``entry()``'s fine-tracking step on the card against the CPU
+     (inlier counts equal, pose within 2e-4);
+ 20. mono-VI lane: the JAX bench's mono_vi lane (6000-point world, seed 7,
      240 frames of the excited orbit at 20 fps, monocular, IMU at 200 Hz
      with gyro bias [0.01, -0.008, 0.012] and noise, 1024 feature slots,
      2048 pinned local-map slots, LBA slots 32 / 8192 / 8) through
@@ -80,43 +97,44 @@ exits non-zero:
      run, gyro-predicted windows through the pose kernel's mono rows, then
      ``finalize()`` with the visual-inertial alternation; gated against the
      JAX package's CPU run of the same lane (PERF.md);
- 17. mono pose kernel: a coarse (1 x 3) and a fine (2 x 2) problem of a
+ 21. mono pose kernel: a coarse (1 x 3) and a fine (2 x 2) problem of a
      tracked window after the visual-inertial initialization and the
      realign batch of ``finalize()``, all mono rows (``right = -1``), on
      the inputs the lane gave them, against the plain version,
      bit-identical reruns, timed beside their bounds;
- 18. IMU solvers: ``solve_scale_gravity`` and ``solve_imu_chain`` in
+ 22. IMU solvers: ``solve_scale_gravity`` and ``solve_imu_chain`` in
      float64 at K = 16 and 64 keyframe slots on the CPU and on the card,
      results within 1e-9, ms on both;
- 19. mono-VI CPU against GPU: the small configuration that
+ 23. mono-VI CPU against GPU: the small configuration that
      tests/test_torch_mono_vi_slice.py runs (3000-point world, seed 5,
      10 fps, window 8), 80 frames of it, on both devices with the same
      RANSAC hypotheses.
 
- 20. tum_render: the CLI lane's TUM-RGBD-format sequence
+ 24. tum_render: the CLI lane's TUM-RGBD-format sequence
      (utils/tum_fixture.py: seed 7, 2000 points in a 5 m room, 300 frames
      of 640x480 at 30 Hz on an inward orbit arc, TUM freiburg1
      intrinsics; gray and 16-bit depth PNGs, the ground truth) written to
      a temporary directory, three frames decoded by the port's reader and
      held against the rendered arrays;
- 21. CLI: ``snakeslam_tpu_torch.__main__.main`` in-process on a copy of
+ 25. CLI: ``snakeslam_tpu_torch.__main__.main`` in-process on a copy of
      configs/tum.ini over that sequence on the card (launch counts reset
      just before, read just after; host seconds by stage), gated against
      the JAX package's CLI on the CPU over the same files
      (scripts/jax_cli_reference.py; PERF.md); then ``python3 -m
      snakeslam_tpu_torch`` as a subprocess over its first 30 frames;
- 22. CLI async: the same with ``async_mode`` and ``async_lba`` on, gated
+ 26. CLI async: the same with ``async_mode`` and ``async_lba`` on, gated
      against the sync run;
- 23. checkpoint: the CLI run's map saved, loaded, every field compared;
- 24. depth filter: the RGB-D depth filter at 640x480 on the lane's depth,
+ 27. checkpoint: the CLI run's map saved, loaded, every field compared;
+ 28. depth filter: the RGB-D depth filter at 640x480 on the lane's depth,
      card against CPU, timed; Input over the sequence with the filter off
      and on (features with depth per frame);
- 25. TSDF: the lane's first 30 depth frames fused at V = 128 and 256 on
+ 29. TSDF: the lane's first 30 depth frames fused at V = 128 and 256 on
      the card and the CPU, compared and timed.
 
-``--only a,b`` runs the build and then only the named phases of 13-25
-(``loop``, ``mono_vi``, ``vi_solvers``, ``mono_vi_cpu_gpu``, ``cli``) and
-prints no result line: for iterating on one lane.
+``--only a,b`` runs the build and then only the named phases of 13-29
+(``loop``: 13-15; ``multichip``: 13 and 16-19; ``mono_vi``,
+``vi_solvers``, ``mono_vi_cpu_gpu``, ``cli``) and prints no result line:
+for iterating on one lane.
 
 The line before the last is one JSON object with the kernels' names,
 routes, launch counts, errors, times (``ms`` per call, ``device_ms`` per
@@ -146,7 +164,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from snakeslam_tpu_torch.core.camera import Pinhole
 from snakeslam_tpu_torch.core.trajectory import read_tum
+from snakeslam_tpu_torch.entry import dryrun_multichip, entry
 from snakeslam_tpu_torch.frontend.datasets import TumRgbdDataset
 from snakeslam_tpu_torch.frontend.depth_processor import (DepthProcessor,
                                                           process_depth)
@@ -165,6 +185,7 @@ from snakeslam_tpu_torch.loop.keyframe_database import KeyframeDatabase
 from snakeslam_tpu_torch.map import serialization as SER
 from snakeslam_tpu_torch.map.serialization import load_map, save_map
 from snakeslam_tpu_torch.mapping import local_mapping as LM
+from snakeslam_tpu_torch.models import tracking_step as TS
 from snakeslam_tpu_torch.models import window_step as WS
 from snakeslam_tpu_torch.ops import ba as BA
 from snakeslam_tpu_torch.ops import imu as IMU
@@ -174,8 +195,10 @@ from snakeslam_tpu_torch.ops import pgo as PGO
 from snakeslam_tpu_torch.ops import pose_fused as PF
 from snakeslam_tpu_torch.ops import sim3_solver as SIM3
 from snakeslam_tpu_torch.ops import tsdf as TSDF
+from snakeslam_tpu_torch.ops.descriptors import hamming_matrix
 from snakeslam_tpu_torch.optim import gba as GBA
 from snakeslam_tpu_torch.optim import simplification as SIMP
+from snakeslam_tpu_torch.parallel import multichip as MC
 from snakeslam_tpu_torch.system.settings import InputType, Settings
 from snakeslam_tpu_torch.ops.triangulate_pairs import triangulate_pairs_batch
 from snakeslam_tpu_torch.system import slam as SLAM
@@ -231,6 +254,16 @@ LOOP_FRAMES, LOOP_WINDOW = 400, 64
 JAX_LOOP = dict(tracked=400, keyframes=81, points=6280,
                 ate_m=0.020929448906971324, loops_closed=1,
                 keyframes_final=71, ate_final_m=0.011153146451384117)
+# the same run with n_devices = 4 on four virtual XLA CPU devices
+# (scripts/jax_multichip_reference.py; PERF.md): every full BA sharded
+JAX_LOOP_SHARDED = dict(tracked=400, keyframes=81, points=6282,
+                        ate_m=0.021039947559649892, loops_closed=1,
+                        keyframes_final=71,
+                        ate_final_m=0.012935801278021363)
+LOOP_SHARDED_ATE_FACTOR = 1.5   # sharded against unsharded, after finalize
+MULTICHIP_SHARDS = 4
+MULTICHIP_ITERS = 3
+MULTICHIP_RTOL = 1e-9     # the sharded step: 1 shard, CPU, against 4
 POSE_BATCHED_ATOL = 1e-5  # batched pose kernel against its plain version
 # the mono rows of the pose refine (``right <= 0``: two residual rows, no
 # right-image row), counted as POSE_OPS_* are: residual ~30, Huber weight 5,
@@ -1024,9 +1057,14 @@ class Probe:
         setattr(self.owner, self.name, self.inner)
 
 
-def loop_lane_phase(dev) -> dict:
+def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
+    """The loop lane with ``n_devices`` shards for the global BA, then
+    ``finalize()``; gated on the JAX package's CPU run with as many
+    devices (``JAX_LOOP``, ``JAX_LOOP_SHARDED``) and, sharded, on the
+    unsharded lane's run (``unsharded``) of the same script."""
     world = SyntheticWorld(n_points=60000, seed=7)
     s = loop_settings(world)
+    s.n_devices = n_devices
     system = SlamSystem(s, dev)
     frames = list(synthetic_frames(
         world, loop_trajectory(LOOP_FRAMES, radius=7.0, fps=200.0), s,
@@ -1059,6 +1097,9 @@ def loop_lane_phase(dev) -> dict:
             stack.enter_context(t)
         verify = stack.enter_context(Probe(LC, "_verify_search_refine"))
         verify_kernel = stack.enter_context(Probe(LC, "pose_refine_fused"))
+        full = stack.enter_context(Probe(GBA.GlobalBA, "full_ba"))
+        sharded = stack.enter_context(
+            Probe(GBA.GlobalBA, "_sharded_full_ba"))
         PF.LAUNCHES = 0
         t0 = time.perf_counter()
         runner.run(frames)
@@ -1071,9 +1112,14 @@ def loop_lane_phase(dev) -> dict:
     kfs, pts = system.map.n_keyframes, system.map.n_points
     ate, _, _ = system.ate_against_gt(with_scale=False)
     loops = lc.n_loops_closed
+    # the lane's whole-map BA problem before finalize, for the multichip
+    # phase (float64, buckets C 128, P 8192, M 16)
+    problem = lc.gba.pack_full()[0] if n_devices > 1 else None
     with Probe(GBA.GlobalBA, "realign_intermediate_frames",
                    keep=True) as realign, \
-            Probe(GBA, "pose_refine_fused") as realign_kernel:
+            Probe(GBA, "pose_refine_fused") as realign_kernel, \
+            Probe(GBA.GlobalBA, "full_ba") as full_fin, \
+            Probe(GBA.GlobalBA, "_sharded_full_ba") as sharded_fin:
         n0 = PF.LAUNCHES
         t0 = time.perf_counter()
         system.finalize()
@@ -1083,7 +1129,10 @@ def loop_lane_phase(dev) -> dict:
     ate_final, _, _ = system.ate_against_gt(with_scale=False)
     kfs_final = system.map.n_keyframes
     tracking = run_launches - verify.launches
-    phase("loop_lane", frames=LOOP_FRAMES, window=LOOP_WINDOW,
+    name = "loop_lane" if n_devices == 1 else "loop_sharded"
+    phase(name, frames=LOOP_FRAMES, window=LOOP_WINDOW, n_devices=n_devices,
+          mesh=([str(d) for d in lc.gba._mesh.devices]
+                if lc.gba._mesh is not None else None),
           tracked=tracked, keyframes=kfs, points=pts, ate_m=ate,
           loops_closed=loops, wall_s=wall, fps=tracked / wall,
           loop_correction_ms=correct_ms, finalize_s=finalize_s,
@@ -1093,9 +1142,14 @@ def loop_lane_phase(dev) -> dict:
                              verification=verify.launches,
                              realign=finalize_launches),
           verifications=verify.calls, realign_batch=realign.out,
+          full_ba_calls=dict(run=full.calls, finalize=full_fin.calls),
+          sharded_full_ba_calls=dict(run=sharded.calls,
+                                     finalize=sharded_fin.calls),
+          full_ba_s=dict(run=full.seconds, finalize=full_fin.seconds),
           backend=backend_counts(system), host_s_and_calls=host_s,
-          jax_cpu=JAX_LOOP)
-    J = JAX_LOOP
+          jax_cpu=JAX_LOOP if n_devices == 1 else JAX_LOOP_SHARDED,
+          card=card_line())
+    J = JAX_LOOP if n_devices == 1 else JAX_LOOP_SHARDED
     check(tracked == J["tracked"], f"loop lane tracked {tracked} of 400")
     check(loops >= 1, "the loop lane closed no loop")
     check(abs(kfs - J["keyframes"]) <= 0.1 * J["keyframes"],
@@ -1118,9 +1172,152 @@ def loop_lane_phase(dev) -> dict:
           and all(b > 0 for b in realign.out),
           f"{finalize_launches} pose launches for the realign calls "
           f"{realign.out}")
+    # every full BA of the run is a loop correction's, finalize makes three
+    check(full.calls == len(correct_ms) and full_fin.calls == 3,
+          f"{full.calls} full BAs for {len(correct_ms)} loop corrections, "
+          f"{full_fin.calls} in finalize")
+    if n_devices == 1:
+        check(sharded.calls == sharded_fin.calls == 0,
+              "the unsharded loop lane ran the sharded step")
+    else:
+        check(lc.gba._mesh.size == n_devices,
+              f"the loop closer's mesh has {lc.gba._mesh.size} shards")
+        check(sharded.calls == full.calls
+              and sharded_fin.calls == full_fin.calls,
+              f"sharded full BAs {sharded.calls} + {sharded_fin.calls} for "
+              f"{full.calls} + {full_fin.calls} full BAs")
+        ratio = ate_final / unsharded["ate_final_m"]
+        check(1 / LOOP_SHARDED_ATE_FACTOR <= ratio <= LOOP_SHARDED_ATE_FACTOR,
+              f"sharded loop lane ATE {ate_final} m after finalize, the "
+              f"unsharded run's {unsharded['ate_final_m']} m")
     return dict(launches=run_launches + finalize_launches,
                 realign_args=realign_kernel.args,
-                verify_args=verify_kernel.args)
+                verify_args=verify_kernel.args, ate_final_m=ate_final,
+                gba=lc.gba, problem=problem)
+
+
+def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|, on the host."""
+    a, b = a.cpu(), b.cpu()
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-300)).item()
+
+
+def multichip_phase(dev, lane) -> None:
+    """The sharded BA step on the sharded loop lane's own whole-map problem
+    (float64), on a 4-shard mesh of the card against a 1-shard mesh, the
+    same 4 shards on the CPU and a rerun; ms per iteration and peak memory
+    for 1 and 4 shards; the sharded matcher at the tracking shapes (4096
+    local-map slots, 1024 features) against ``hamming_matrix``."""
+    gba, problem = lane["gba"], lane["problem"]
+    mesh = MC.make_mesh(MULTICHIP_SHARDS, dev)
+    one = MC.make_mesh(1, dev)
+    card = card_line()
+    phase("mesh", devices=[str(d) for d in mesh.devices], size=mesh.size,
+          distinct=mesh.distinct, device_count=torch.cuda.device_count(),
+          card=card)
+    C = problem.cam_pose.shape[0]
+    P, M = problem.obs_cam.shape
+
+    def solve(m, prob, cam, bf):
+        step = MC.sharded_ba_step(m, cam, bf, n_iters=MULTICHIP_ITERS)
+        return step(MC.shard_problem(prob, m))
+
+    def timed(m):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = solve(m, problem, gba.cam64, gba.bf64)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = _wall_ms(lambda: solve(m, problem, gba.cam64, gba.bf64),
+                      sync=True) / MULTICHIP_ITERS
+        return out, ms, peak
+
+    out4, ms4, peak4 = timed(mesh)
+    out1, ms1, peak1 = timed(one)
+    again = solve(mesh, problem, gba.cam64, gba.bf64)
+    cpu_prob = BA.BAProblem(*(t.cpu() for t in problem))
+    cpu_cam = Pinhole(*(c.cpu() for c in gba.cam64))
+    t0 = time.perf_counter()
+    cpu4 = solve(MC.make_mesh(MULTICHIP_SHARDS, "cpu"), cpu_prob, cpu_cam,
+                 gba.bf64.cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / MULTICHIP_ITERS
+    err_one = [_rel_err(a, b) for a, b in zip(out4, out1)]
+    err_cpu = [_rel_err(a, b) for a, b in zip(out4, cpu4)]
+    rerun = all(torch.equal(a, b) for a, b in zip(out4, again))
+
+    g = torch.Generator().manual_seed(0)
+    pb = torch.randint(0, 2, (4096, 256), generator=g, dtype=torch.int8)
+    fb = torch.randint(0, 2, (1024, 256), generator=g, dtype=torch.int8)
+    pb, fb = pb.to(dev), fb.to(dev)
+    d, idx = MC.sharded_hamming_topk(mesh)(pb, fb)
+    H = hamming_matrix(pb, fb)
+    match_exact = (torch.equal(d, H.amin(dim=1))
+                   and torch.equal(idx, H.argmin(dim=1).to(torch.int32)))
+    phase("multichip", shards=MULTICHIP_SHARDS, iterations=MULTICHIP_ITERS,
+          dtype=str(problem.cam_pose.dtype),
+          cam_slots=C, point_slots=P, obs_slots=M,
+          keyframes=int(problem.cam_valid.sum()),
+          points=int(problem.point_valid.sum()),
+          ms_per_iter=dict(shards_4=ms4, shards_1=ms1, cpu_shards_4=cpu_ms),
+          peak_mib=dict(shards_4=peak4 / 2**20, shards_1=peak1 / 2**20),
+          rel_err_vs_1_shard=dict(cam=err_one[0], points=err_one[1]),
+          rel_err_vs_cpu=dict(cam=err_cpu[0], points=err_cpu[1]),
+          rerun_bit_identical=rerun, matcher_exact=match_exact, card=card)
+    check(out4[0].device == mesh.devices[0] and out4[0].dtype ==
+          torch.float64, "the sharded step's result is not float64 on the "
+          "mesh's first device")
+    check(all(torch.isfinite(t).all().item() for t in out4),
+          "the sharded step gave non-finite values")
+    check(max(err_one) <= MULTICHIP_RTOL,
+          f"4 shards against 1: relative errors {err_one}")
+    check(max(err_cpu) <= MULTICHIP_RTOL,
+          f"4 shards on the card against the CPU: relative errors {err_cpu}")
+    check(rerun, "the sharded step's rerun is not bit-identical")
+    check(match_exact, "the sharded matcher differs from hamming_matrix")
+
+
+def dryrun_phase(dev) -> None:
+    t0 = time.perf_counter()
+    dryrun_multichip(MULTICHIP_SHARDS)
+    torch.cuda.synchronize()
+    phase("dryrun_multichip", shards=MULTICHIP_SHARDS,
+          seconds=time.perf_counter() - t0, card=card_line())
+
+
+def entry_phase(dev) -> None:
+    """``entry()``'s fine-tracking step on the card against the same step
+    on the CPU."""
+    fn, args = entry()
+    check(args[0].position.device.type == "cuda",
+          "entry() did not default to the card")
+    T, n_inl = fn(*args)
+    cfn, cargs = entry("cpu")
+    cT, cn = cfn(*cargs)
+    err = (T.cpu() - cT).abs().max().item()
+    # the projection match behind it: the same map points in view
+    visible = int(TS.fine_step(*args)["visible"].sum())
+    visible_cpu = int(TS.fine_step(*cargs)["visible"].sum())
+    ms = _wall_ms(lambda: fn(*args), sync=True)
+    phase("entry", n_inliers=int(n_inl), n_inliers_cpu=int(cn),
+          visible=visible, visible_cpu=visible_cpu, max_abs_err=err, ms=ms,
+          card=card_line())
+    check(int(n_inl) == int(cn),
+          f"entry(): {int(n_inl)} inliers on the card, {int(cn)} on the CPU")
+    check(visible == visible_cpu > 0,
+          f"entry(): {visible} points in view on the card, {visible_cpu} "
+          "on the CPU")
+    check(err <= POSE_ATOL, f"entry(): T differs from the CPU's by {err}")
+
+
+def multichip_phases(dev, unsharded) -> dict:
+    """The sharded loop lane, the sharded step on its problem, the dry run
+    and the entry point.  Returns the sharded lane's results."""
+    lane = loop_lane_phase(dev, MULTICHIP_SHARDS, unsharded)
+    multichip_phase(dev, lane)
+    dryrun_phase(dev)
+    entry_phase(dev)
+    return lane
 
 
 def plain_spread(args, kw, trials: int = 16) -> float:
@@ -1994,9 +2191,13 @@ def main() -> int:
     phase("build", seconds=cuda_build.build(
         PF.SOURCE, OK.FAST_SOURCE, OK.PATCH_SOURCE, force=True))
     if only is not None:
+        if "loop" in only or "multichip" in only:
+            loop = loop_lane_phase(dev)
         if "loop" in only:
-            pose_batched_phase(dev, loop_lane_phase(dev))
+            pose_batched_phase(dev, loop)
             loop_cpu_gpu_phase(dev)
+        if "multichip" in only:
+            multichip_phases(dev, loop)
         if "mono_vi" in only:
             pose_mono_phase(dev, mono_vi_lane_phase(dev))
         if "vi_solvers" in only:
@@ -2021,6 +2222,7 @@ def main() -> int:
     loop = loop_lane_phase(dev)
     pose_batched_phase(dev, loop)
     loop_cpu_gpu_phase(dev)
+    sharded = multichip_phases(dev, loop)
     mono_vi = mono_vi_lane_phase(dev)
     mono_fine = pose_mono_phase(dev, mono_vi)
     vi_solvers_phase(dev)
@@ -2032,12 +2234,13 @@ def main() -> int:
         "route": "cuda",
         "source": "snakeslam_tpu_torch/csrc/pose_refine.cu",
         "replaces": "snakeslam_tpu/ops/pose_pallas.py:258",
-        # the smooth, pixels, loop, mono-VI and CLI lanes' runs, each
-        # counted alone (the loop lane's: tracking, loop verification and
-        # the realign; the mono-VI lane's: tracking and the realign; the
-        # CLI lane's: the realign)
+        # the smooth, pixels, loop, sharded loop, mono-VI and CLI lanes'
+        # runs, each counted alone (the loop lanes': tracking, loop
+        # verification and the realign; the mono-VI lane's: tracking and
+        # the realign; the CLI lane's: the realign)
         "launches": (smooth_launches + pix["pose"] + loop["launches"]
-                     + mono_vi["launches"] + cli["pose"]),
+                     + sharded["launches"] + mono_vi["launches"]
+                     + cli["pose"]),
         **kern,
         # the mono-VI lane's own fine (2 x 2) problem, every row mono
         "mono_device_ms": mono_fine["device_us"] / 1e3,

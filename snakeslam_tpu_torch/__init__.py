@@ -29,15 +29,19 @@ same path:
              SlamSystem
   utils/     synthetic and rendered worlds, the rendered TUM-RGBD sequence,
              synthetic IMU, seeded problems
-             (pose, back-end, loop, visual-inertial), conversion of
+             (pose, back-end, BA, loop, visual-inertial), conversion of
              JAX-package state, the kernels' build helper, the native runtime
              library
   frontend/  synthetic feature source, dataset readers and Input, the
              pixels-in stereo front-end, feature detector and preprocessing,
              the RGB-D depth filter, stereo rectification
   viewer/    map / frame snapshot export and the offline map plot
+  parallel/  a device mesh driven by one process, the sharded Hamming
+             matcher and the sharded global-BA step (``n_devices > 1``)
   __main__   the dataset CLI: ``python -m snakeslam_tpu_torch <config.ini>
              --dataset <dir> [--device cpu]``
+  entry      the fine-tracking step on seeded inputs and the
+             multi-device dry run
 
 State is created on an explicit ``device``; CPU tensors take each kernel's
 plain PyTorch version, CUDA tensors launch the kernel.

@@ -249,6 +249,97 @@ def _schur_pair_scatter(Y, Z, cidx, C):
 
 
 # ---------------------------------------------------------------------------
+# Schur-complement pieces (shared with parallel/multichip.py's sharded step)
+# ---------------------------------------------------------------------------
+
+def _reduced_camera_system(A, B, r, w, Hpp_inv, cidx, C):
+    """The reduced camera system of the observations (P, M) with camera
+    Jacobians A, point Jacobians B, residuals r, weights w, the points'
+    inverse damped Hessians Hpp_inv (P, 3, 3) and camera slots cidx (C
+    drops an observation): S = Hcc - sum Y Hpp^-1 Y^T as (C, C, 6, 6), the
+    reduced gradient g_hat (C, 6), and Y (P, M, 6, 3) and g_p (P, 3) for
+    the back-substitution.  Every segment sum is a one-hot contraction."""
+    dtype = A.dtype
+    g_p = torch.einsum("pmki,pm,pmk->pi", B, w, r)            # (P, 3)
+    g_c_obs = torch.einsum("pmki,pm,pmk->pmi", A, w, r)       # (P, M, 6)
+    Hcc_obs = torch.einsum("pmki,pm,pmkj->pmij", A, w, A)     # (P,M,6,6)
+    Y = torch.einsum("pmki,pm,pmkj->pmij", A, w, B)           # (P,M,6,3)
+
+    onehot = _one_hot(cidx, C + 1, dtype)                     # (P,M,C+1)
+    g_c = torch.einsum("pma,pmi->ai", onehot, g_c_obs)[:C]
+    Hcc = torch.einsum("pma,pmij->aij", onehot, Hcc_obs)[:C]
+
+    # reduced gradient: g_c - sum_pm Y (Hpp^-1 g_p)
+    hg = torch.einsum("pij,pj->pi", Hpp_inv, g_p)             # (P, 3)
+    red = torch.einsum("pmij,pj->pmi", Y, hg)                 # (P, M, 6)
+    g_hat = g_c - torch.einsum("pma,pmi->ai", onehot, red)[:C]
+
+    # reduced camera system S = Hcc - sum Y Hpp^-1 Y^T, as (C, C, 6, 6)
+    Z = torch.einsum("pij,pmkj->pmik", Hpp_inv, Y)            # (P,M,3,6)
+    S = -_schur_pair_scatter(Y, Z, cidx, C)
+    diag = torch.arange(C, device=A.device)
+    S[diag, diag] += Hcc
+    return S, g_hat, Y, g_p
+
+
+def _add_rpc(problem: BAProblem, cam_pose, S, g_hat):
+    """The relative-pose factors added to the reduced camera system as
+    one-hot contractions (fixed order): (S, g_hat, the factors'
+    residuals)."""
+    C = cam_pose.shape[0]
+    dtype = cam_pose.dtype
+    Oi = _one_hot(torch.clamp(problem.rpc_i, 0, C - 1).long(), C, dtype)
+    Oj = _one_hot(torch.clamp(problem.rpc_j, 0, C - 1).long(), C, dtype)
+    rr, Ji, Jj = _rpc_residuals(problem, cam_pose)
+    wr = torch.where(problem.rpc_valid[:, None], problem.rpc_weight, 0.0)
+    Hii = torch.einsum("rki,rk,rkj->rij", Ji, wr, Ji)
+    Hjj = torch.einsum("rki,rk,rkj->rij", Jj, wr, Jj)
+    Hij = torch.einsum("rki,rk,rkj->rij", Ji, wr, Jj)
+    gi = torch.einsum("rki,rk,rk->ri", Ji, wr, rr)
+    gj = torch.einsum("rki,rk,rk->ri", Jj, wr, rr)
+    S = S + (torch.einsum("ra,rb,rij->abij", Oi, Oi, Hii)
+             + torch.einsum("ra,rb,rij->abij", Oj, Oj, Hjj)
+             + torch.einsum("ra,rb,rij->abij", Oi, Oj, Hij)
+             + torch.einsum("ra,rb,rji->abij", Oj, Oi, Hij))
+    return S, g_hat + Oi.mT @ gi + Oj.mT @ gj, rr
+
+
+def _camera_step(S, g_hat, free, lam):
+    """The camera update (C, 6) from the reduced system: LM-style diagonal
+    damping, the constant cameras masked out, the dense 6C x 6C Cholesky
+    solve.  S is damped in place.  S is symmetric positive definite after
+    damping; a degenerate window gives NaN here, which the LBA commit
+    drops."""
+    C = S.shape[0]
+    dtype, dev = S.dtype, S.device
+    diag = torch.arange(C, device=dev)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    diagS = torch.diagonal(S[diag, diag], dim1=1, dim2=2)     # (C, 6)
+    S[diag, diag] += (lam * torch.clamp(diagS, min=1e-8))[:, :, None] \
+        * eye6
+    S = S * free[:, None, None, None] * free[None, :, None, None]
+    S[diag, diag] += eye6 * (1.0 - free)[:, None, None]
+    g_hat = g_hat * free[:, None]
+    S_dense = S.transpose(1, 2).reshape(6 * C, 6 * C)
+    eye_s = torch.eye(6 * C, dtype=dtype, device=dev)
+    delta_c = -solve_psd(S_dense + 1e-8 * eye_s,
+                         g_hat.reshape(-1)).reshape(C, 6)
+    return delta_c * free[:, None]
+
+
+def _back_substitute(problem: BAProblem, points, delta_c, Hpp_inv, Y, g_p,
+                     cidx):
+    """The point update delta_p = -Hpp^-1 (g_p + sum_m Y^T delta_c)."""
+    C = delta_c.shape[0]
+    dc = delta_c[torch.clamp(cidx, max=C - 1)]
+    dc = torch.where((cidx < C)[..., None], dc, 0.0)
+    ytd = torch.einsum("pmij,pmi->pj", Y, dc)
+    delta_p = -torch.einsum("pij,pj->pi", Hpp_inv, g_p + ytd)
+    return torch.where(problem.point_valid[:, None], points + delta_p,
+                       points)
+
+
+# ---------------------------------------------------------------------------
 # the LM solver
 # ---------------------------------------------------------------------------
 
@@ -271,12 +362,6 @@ def solve_ba(
     dev = problem.cam_pose.device
     free = (problem.cam_valid & (~problem.cam_fixed)).to(dtype)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    diag = torch.arange(C, device=dev)
-    rpc_i = torch.clamp(problem.rpc_i, 0, C - 1).long()
-    rpc_j = torch.clamp(problem.rpc_j, 0, C - 1).long()
-    Oi = _one_hot(rpc_i, C, dtype)                            # (R, C)
-    Oj = _one_hot(rpc_j, C, dtype)
 
     def build_normal_eqs(cam_pose, points, lam):
         r, A, B, valid, has_stereo = _point_residuals(
@@ -295,70 +380,20 @@ def solve_ba(
         Hpp = Hpp + 1e-9 * eye3
         Hpp_inv = inv3x3(Hpp)
 
-        g_p = torch.einsum("pmki,pm,pmk->pi", B, w, r)            # (P, 3)
-        g_c_obs = torch.einsum("pmki,pm,pmk->pmi", A, w, r)       # (P, M, 6)
-        Hcc_obs = torch.einsum("pmki,pm,pmkj->pmij", A, w, A)     # (P,M,6,6)
-        Y = torch.einsum("pmki,pm,pmkj->pmij", A, w, B)           # (P,M,6,3)
-
         cidx = torch.where(valid, problem.obs_cam.long(), C)      # C = drop
-        onehot = _one_hot(cidx, C + 1, dtype)                     # (P,M,C+1)
-        g_c = torch.einsum("pma,pmi->ai", onehot, g_c_obs)[:C]
-        Hcc = torch.einsum("pma,pmij->aij", onehot, Hcc_obs)[:C]
-
-        # reduced gradient: g_c - sum_pm Y (Hpp^-1 g_p)
-        hg = torch.einsum("pij,pj->pi", Hpp_inv, g_p)             # (P, 3)
-        red = torch.einsum("pmij,pj->pmi", Y, hg)                 # (P, M, 6)
-        g_hat = g_c - torch.einsum("pma,pmi->ai", onehot, red)[:C]
-
-        # reduced camera system S = Hcc - sum Y Hpp^-1 Y^T, as (C, C, 6, 6)
-        Z = torch.einsum("pij,pmkj->pmik", Hpp_inv, Y)            # (P,M,3,6)
-        S = -_schur_pair_scatter(Y, Z, cidx, C)
-        S[diag, diag] += Hcc
-
-        # relative-pose factors (one-hot contractions: fixed order)
-        rr, Ji, Jj = _rpc_residuals(problem, cam_pose)
+        S, g_hat, Y, g_p = _reduced_camera_system(A, B, r, w, Hpp_inv, cidx,
+                                                  C)
+        S, g_hat, rr = _add_rpc(problem, cam_pose, S, g_hat)
         cost_cur = cost_cur + _rpc_cost(problem, rr)
-        wr = torch.where(problem.rpc_valid[:, None], problem.rpc_weight, 0.0)
-        Hii = torch.einsum("rki,rk,rkj->rij", Ji, wr, Ji)
-        Hjj = torch.einsum("rki,rk,rkj->rij", Jj, wr, Jj)
-        Hij = torch.einsum("rki,rk,rkj->rij", Ji, wr, Jj)
-        gi = torch.einsum("rki,rk,rk->ri", Ji, wr, rr)
-        gj = torch.einsum("rki,rk,rk->ri", Jj, wr, rr)
-        S = S + (torch.einsum("ra,rb,rij->abij", Oi, Oi, Hii)
-                 + torch.einsum("ra,rb,rij->abij", Oj, Oj, Hjj)
-                 + torch.einsum("ra,rb,rij->abij", Oi, Oj, Hij)
-                 + torch.einsum("ra,rb,rji->abij", Oj, Oi, Hij))
-        g_hat = g_hat + Oi.mT @ gi + Oj.mT @ gj
+        return S, g_hat, Hpp_inv, Y, g_p, cidx, cost_cur
 
-        # camera damping + fix constant cameras
-        diagS = torch.diagonal(S[diag, diag], dim1=1, dim2=2)     # (C, 6)
-        S[diag, diag] += (lam * torch.clamp(diagS, min=1e-8))[:, :, None] \
-            * eye6
-        S = S * free[:, None, None, None] * free[None, :, None, None]
-        S[diag, diag] += eye6 * (1.0 - free)[:, None, None]
-        g_hat = g_hat * free[:, None]
-
-        S_dense = S.transpose(1, 2).reshape(6 * C, 6 * C)
-        return S_dense, g_hat.reshape(-1), Hpp_inv, Y, g_p, cidx, cost_cur
-
-    eye_s = torch.eye(6 * C, dtype=dtype, device=dev)
-
-    def apply_step(cam_pose, points, S_dense, g_hat, Hpp_inv, Y, g_p, cidx):
-        # S is symmetric positive definite after damping; a degenerate
-        # window gives NaN here, which the LBA commit drops
-        delta_c = -solve_psd(S_dense + 1e-8 * eye_s, g_hat).reshape(C, 6)
-        delta_c = delta_c * free[:, None]
+    def apply_step(cam_pose, points, S, g_hat, Hpp_inv, Y, g_p, cidx, lam):
+        delta_c = _camera_step(S, g_hat, free, lam)
         new_cam = lie.orthonormalize(lie.se3_exp(delta_c) @ cam_pose)
         if not optimize_points:
             return new_cam, points
-        # back-substitute: delta_p = -Hpp^-1 (g_p + sum_m Y^T delta_c)
-        dc = delta_c[torch.clamp(cidx, max=C - 1)]
-        dc = torch.where((cidx < C)[..., None], dc, 0.0)
-        ytd = torch.einsum("pmij,pmi->pj", Y, dc)
-        delta_p = -torch.einsum("pij,pj->pi", Hpp_inv, g_p + ytd)
-        new_points = torch.where(problem.point_valid[:, None],
-                                 points + delta_p, points)
-        return new_cam, new_points
+        return new_cam, _back_substitute(problem, points, delta_c, Hpp_inv,
+                                         Y, g_p, cidx)
 
     # one residual/Jacobian pass per iteration: always step, keep the best
     # evaluated iterate; iterations + 1 passes (the last evaluates the last
@@ -369,16 +404,17 @@ def solve_ba(
     prev_cost = best_cost = big
     best_cam, best_pts = cam_pose, points
     for _ in range(iterations + 1):
-        S_dense, g_hat, Hpp_inv, Y, g_p, cidx, cost_cur = build_normal_eqs(
+        S, g_hat, Hpp_inv, Y, g_p, cidx, cost_cur = build_normal_eqs(
             cam_pose, points, lam)
         improved = cost_cur < best_cost
         best_cam = torch.where(improved, cam_pose, best_cam)
         best_pts = torch.where(improved, points, best_pts)
         best_cost = torch.where(improved, cost_cur, best_cost)
+        lam_step = lam
         lam = torch.where(cost_cur <= prev_cost, lam * 0.5, lam * 4.0)
         prev_cost = cost_cur
-        cam_pose, points = apply_step(cam_pose, points, S_dense, g_hat,
-                                      Hpp_inv, Y, g_p, cidx)
+        cam_pose, points = apply_step(cam_pose, points, S, g_hat, Hpp_inv,
+                                      Y, g_p, cidx, lam_step)
     return best_cam, best_pts, best_cost
 
 

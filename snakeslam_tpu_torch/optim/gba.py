@@ -13,6 +13,12 @@ frame: on CUDA tensors one batched launch of the pose kernel of
 Shapes are bucketed to powers of two: C keyframe slots from 16, P point
 slots from 256, 16 observation slots a point.
 
+With ``n_devices > 1`` FullBA runs the sharded Gauss-Newton step of
+``parallel/multichip.py`` (points split over a mesh of that many shards,
+the reduced camera system reduced on the mesh's first device) and returns
+NaN for its cost, as the JAX package does; PointBA and outlier removal
+stay unsharded.
+
 The three BA passes run in float64 (the JAX package runs them in float32):
 on a long keyframe chain the reduced camera system is ill-conditioned, and
 float32 rounding of its assembly and Cholesky solve moved the middle of a
@@ -37,6 +43,7 @@ from snakeslam_tpu_torch.optim.packing import (
     erase_outlier_observations,
     pack_observations,
 )
+from snakeslam_tpu_torch.parallel import multichip as MC
 from snakeslam_tpu_torch.system.settings import Settings
 from snakeslam_tpu_torch.tracking.staging import (HostCopy,
                                                   pad_frames_features, upload)
@@ -55,10 +62,6 @@ class GlobalBA:
     def __init__(self, settings: Settings, smap: SlamMap, device,
                  imu_solver=None):
         self.imu_solver = imu_solver
-        if getattr(settings, "n_devices", 1) > 1:
-            raise NotImplementedError(
-                "GlobalBA: the sharded multi-device solve is not ported yet "
-                "(ROADMAP.md queue A, step 16)")
         self.s = settings
         self.map = smap
         self.device = torch.device(device)
@@ -71,6 +74,22 @@ class GlobalBA:
         self.bf64 = self.bf.to(torch.float64)
         self.pyramid = ScalePyramid.create(settings.fd_levels,
                                            settings.fd_scale_factor)
+        # with n_devices > 1 every full BA runs the sharded step over a
+        # mesh of that many shards on this device's kind (always sharded:
+        # the JAX package falls back to the unsharded solve when it finds
+        # fewer devices)
+        self._mesh = None
+        self._sharded_fns: dict = {}
+        if settings.n_devices > 1:
+            self._mesh = MC.make_mesh(settings.n_devices, self.device)
+
+    def _sharded_full_ba(self, problem, iterations: int):
+        fn = self._sharded_fns.get(iterations)
+        if fn is None:
+            fn = MC.sharded_ba_step(self._mesh, self.cam64, self.bf64,
+                                    n_iters=iterations)
+            self._sharded_fns[iterations] = fn
+        return fn(MC.shard_problem(problem, self._mesh))
 
     # ------------------------------------------------------------------
 
@@ -125,9 +144,14 @@ class GlobalBA:
         if smap.n_keyframes < 2 or smap.n_points < 20:
             return
         problem, aux = self.pack_full()
-        out = BA.solve_ba(problem, self.cam64, self.bf64,
-                          iterations=iterations)
-        cam_pose, points, cost = HostCopy(out).wait()
+        if self._mesh is not None:
+            cam_pose, points = HostCopy(
+                self._sharded_full_ba(problem, iterations)).wait()
+            cost = float("nan")
+        else:
+            cam_pose, points, cost = HostCopy(BA.solve_ba(
+                problem, self.cam64, self.bf64,
+                iterations=iterations)).wait()
         smap.kf_pose[aux["kfs"]] = cam_pose[: len(aux["kfs"])]
         smap.pt_pos[aux["pts"]] = points[: len(aux["pts"])]
         smap.state += 1

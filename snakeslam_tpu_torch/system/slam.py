@@ -14,6 +14,10 @@ mitigation, global BA passes, outlier removal, rematch and realign); the
 fast path is ``WindowedRunner(SlamSystem(settings, device), window).run(
 frames)`` followed by ``finalize()``.
 
+With ``n_devices > 1`` every global BA (the loop correction's,
+``finalize``'s and the IMU solver's stages) runs sharded over a mesh of
+that many shards (``parallel/multichip.py``).
+
 ``async_mode`` runs the front-end on a producer thread (system/pipeline.py)
 and the delayed back-end queues on worker threads, each queue's work under
 the map lock; ``async_lba`` runs the local BA on its own worker
@@ -47,13 +51,6 @@ from snakeslam_tpu_torch.system.queues import DelayedQueue
 from snakeslam_tpu_torch.system.settings import Settings
 from snakeslam_tpu_torch.system.stats import PerformanceStats
 from snakeslam_tpu_torch.tracking.tracker import Tracker
-
-
-def _check_settings(s: Settings):
-    if s.n_devices > 1:
-        raise NotImplementedError(
-            "SlamSystem: n_devices > 1 is not ported yet (ROADMAP.md queue "
-            "A, step 16)")
 
 
 def load_vocabulary(settings: Settings) -> BOW.Vocabulary:
@@ -100,7 +97,6 @@ def _under_lock(lock, fn):
 
 class SlamSystem:
     def __init__(self, settings: Settings, device):
-        _check_settings(settings)
         self.s = settings
         self.device = torch.device(device)
         self.map = SlamMap(settings.max_keyframes, settings.max_points,

@@ -1,8 +1,9 @@
 """State carried across from the JAX package, as numpy arrays, to tensors.
 
 The system has no learned weights; what the two packages share is state:
-local-map snapshots, frame features, camera intrinsics, pose observations
-the windowed tracker's carry and the IMU state solver's state.  These
+local-map snapshots, frame features, camera intrinsics, pose observations,
+bundle-adjustment problems, the windowed tracker's carry and the IMU state
+solver's state.  These
 functions take that state as numpy arrays (``np.asarray`` of the JAX
 arrays) and return the port's tensors on a given device (the solver's
 state stays numpy, as the solver keeps it), so the parity tests feed both
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from snakeslam_tpu_torch.core.camera import Pinhole
+from snakeslam_tpu_torch.ops.ba import BAProblem
 from snakeslam_tpu_torch.ops.matching import FrameFeatures, LocalMapPoints
 from snakeslam_tpu_torch.ops.pose_solver import PoseObs
 
@@ -76,6 +78,23 @@ def pose_obs_from_numpy(obs, device) -> PoseObs:
         weight=_f32(obs.weight, device),
         mask=_bool(obs.mask, device),
     )
+
+
+def ba_problem_from_numpy(problem, device, dtype=None) -> BAProblem:
+    """Fields of a BAProblem as numpy arrays -> the port's BAProblem on
+    ``device``: float fields as ``dtype`` (None keeps each array's float
+    dtype), slots as int32, flags as bool."""
+    out = {}
+    for k, v in problem._asdict().items():
+        v = np.asarray(v)
+        if v.dtype.kind == "f":
+            t = torch.tensor(v, device=device)
+            out[k] = t if dtype is None else t.to(dtype)
+        elif v.dtype == bool:
+            out[k] = _bool(v, device)
+        else:
+            out[k] = _i32(v, device)
+    return BAProblem(**out)
 
 
 def window_carry_from_numpy(carry, device):

@@ -39,6 +39,11 @@ lane's depth (with flying pixels and holes added) and TSDF integration of
 its first frames, each on the card against the CPU (kept pixels and
 weights identical, values within 1e-5); async mode on the card (producer
 thread, async local BA) with exact FAST and pose launch counts.
+
+The multi-device path: the sharded BA step (float64) on four shards of one
+card without a host sync, bit-identical on a rerun, within 1e-9 of four
+CPU shards, and the sharded matcher exact; one shard a card where the
+machine has two or more (skipped below two).
 """
 
 import numpy as np
@@ -786,3 +791,79 @@ def test_async_pipeline_on_the_card(cuda_device, tmp_path):
     assert OK.FAST_LAUNCHES - fast0 == 2 * len(traj)
     assert PF.LAUNCHES - pose0 == 2      # finalize's two realigns
     assert system.lba.n_runs >= 1
+
+
+def _sharded_ba(n_shards, device, dtype=torch.float64):
+    """The sharded BA step (3 iterations) on a synthetic problem (C = 16,
+    P = 1024, M = 8, seed 3) over ``n_shards`` shards of ``device``."""
+    from snakeslam_tpu_torch.core.camera import Pinhole
+    from snakeslam_tpu_torch.parallel import multichip as MC
+    from snakeslam_tpu_torch.utils.ba_fixtures import (
+        make_synthetic_ba_problem)
+
+    mesh = MC.make_mesh(n_shards, device)
+    home = mesh.devices[0]
+    problem, _, _ = make_synthetic_ba_problem(C=16, P=1024, M=8, seed=3,
+                                              device=home, dtype=dtype)
+    cam = Pinhole.create(458.654, 457.296, 367.215, 248.375, device=home,
+                         dtype=dtype)
+    bf = torch.tensor(458.654 * 0.11, dtype=dtype, device=home)
+    step = MC.sharded_ba_step(mesh, cam, bf, n_iters=3)
+    return mesh, step, MC.shard_problem(problem, mesh)
+
+
+def test_sharded_ba_step_on_the_card(cuda_device):
+    """Four shards on one card (float64): no host sync, a rerun
+    bit-identical, within 1e-9 of the same four shards on the CPU; the
+    sharded matcher equal to the unsharded minimum and first index."""
+    from snakeslam_tpu_torch.ops.descriptors import hamming_matrix
+    from snakeslam_tpu_torch.parallel import multichip as MC
+
+    mesh, step, shards = _sharded_ba(4, cuda_device)
+    assert mesh.size == 4 and not mesh.distinct
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(shards)
+        again = step(shards)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(out, again):
+        assert a.device == mesh.devices[0]
+        assert torch.equal(a, b), "rerun not bit-identical"
+    _, cstep, cshards = _sharded_ba(4, "cpu")
+    ref = cstep(cshards)
+    for a, r in zip(out, ref):
+        np.testing.assert_allclose(a.cpu().numpy(), r.numpy(), rtol=0,
+                                   atol=1e-9 * max(1.0, r.abs().max().item()))
+
+    g = torch.Generator().manual_seed(0)
+    pb = torch.randint(0, 2, (4096, 256), generator=g, dtype=torch.int8)
+    fb = torch.randint(0, 2, (1024, 256), generator=g, dtype=torch.int8)
+    d, idx = MC.sharded_hamming_topk(mesh)(pb.to(cuda_device),
+                                           fb.to(cuda_device))
+    H = hamming_matrix(pb, fb)
+    assert torch.equal(d.cpu(), H.amin(dim=1))
+    assert torch.equal(idx.cpu(), H.argmin(dim=1).to(torch.int32))
+
+
+def test_sharded_ba_step_on_distinct_cards(cuda_device):
+    """One shard a card (needs two or more cards): the reduce crosses
+    cards, the result lands on the first card, bit-identical on a rerun
+    and within 1e-9 of the same shards on the CPU."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    mesh, step, shards = _sharded_ba(n, cuda_device)
+    assert mesh.distinct
+    assert [s.points.device for s in shards] == list(mesh.devices)
+    out = step(shards)
+    again = step(shards)
+    for a, b in zip(out, again):
+        assert a.device == torch.device("cuda", 0)
+        assert torch.equal(a, b), "rerun not bit-identical"
+    _, cstep, cshards = _sharded_ba(n, "cpu")
+    ref = cstep(cshards)
+    for a, r in zip(out, ref):
+        np.testing.assert_allclose(a.cpu().numpy(), r.numpy(), rtol=0,
+                                   atol=1e-9 * max(1.0, r.abs().max().item()))

@@ -294,6 +294,12 @@ vol = tsdf.integrate(tsdf.create_volume(8, device="cpu"),
                      16.0, 12.0, 0.1)
 save_map(system.map, tmp / "map.npz")
 assert load_map(tmp / "map.npz").n_keyframes == system.map.n_keyframes
+
+# the multi-device path and the entry points
+from snakeslam_tpu_torch.entry import dryrun_multichip, entry
+dryrun_multichip(2, "cpu")
+fn, args = entry("cpu")
+fn(*args)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "snakeslam_tpu.")))
 print("LEAKED", bad)
@@ -314,10 +320,9 @@ def test_port_imports_no_jax():
                                          ("async_mode", True),
                                          ("n_devices", 2)])
 def test_unported_settings_raise(field, value):
-    """Multi-device settings still raise, naming their ROADMAP step;
-    monocular input, ``enable_imu`` and ``async_mode`` construct (with the
-    mono initializer, the IMU state solver and the queues' worker threads
-    wired in)."""
+    """Monocular input, ``enable_imu``, ``async_mode`` and ``n_devices``
+    construct (with the mono initializer, the IMU state solver, the queues'
+    worker threads and the global BA's device mesh wired in)."""
     from snakeslam_tpu_torch.system.settings import InputType, Settings
     from snakeslam_tpu_torch.system.slam import SlamSystem
 
@@ -325,12 +330,12 @@ def test_unported_settings_raise(field, value):
     s.input_type = InputType.Stereo
     s.enable_imu = False
     setattr(s, field, InputType.Mono if value == "mono" else value)
-    if field == "n_devices":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            SlamSystem(s, "cpu")
-        return
     system = SlamSystem(s, "cpu")
-    if field == "async_mode":
+    if field == "n_devices":
+        mesh = system.loop_closing.gba._mesh
+        assert mesh.size == 2 and not mesh.distinct
+        assert system.loop_closing.gba._sharded_fns == {}
+    elif field == "async_mode":
         assert system._simp_queue.parallel and system._deferred_queue.parallel
         assert system._async_lba is None
         system.finalize()   # joins the workers
@@ -350,6 +355,9 @@ def test_unported_settings_raise(field, value):
 
 
 def test_unported_entry_points_raise():
+    """Every entry point of a monocular, IMU, async or multi-device system
+    constructs and runs; the only refusal left is a mesh whose shard count
+    does not divide the full BA's point slots (``ValueError``)."""
     from snakeslam_tpu_torch.optim.gba import GlobalBA
     from snakeslam_tpu_torch.system.settings import InputType, Settings
     from snakeslam_tpu_torch.system.slam import SlamSystem
@@ -365,17 +373,22 @@ def test_unported_entry_points_raise():
     # the global BA takes the IMU solver's relative-pose factors
     assert GlobalBA(s, system.map, "cpu",
                     imu_solver=system.imu_solver).imu_solver is not None
-    # async mode and the async local BA construct; multi-device raises
+    # async mode and the async local BA construct; so does multi-device,
+    # with a mesh of the shards asked for
     s = Settings()
     s.async_mode = s.async_lba = True
     system = SlamSystem(s, "cpu")
     assert system.local_mapper.lba is system._async_lba
     assert system.run([]) >= 0.0
-    bad = Settings()
-    bad.n_devices = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SlamSystem(bad, "cpu")
-    bad = Settings()
-    bad.n_devices = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        GlobalBA(bad, system.map, "cpu")
+    multi = Settings()
+    multi.n_devices = 2
+    msys = SlamSystem(multi, "cpu")        # monocular + IMU, 2 shards
+    assert msys.loop_closing.gba._mesh.size == 2
+    assert msys.imu_solver.gba._mesh.size == 2
+    assert GlobalBA(multi, system.map, "cpu")._mesh.size == 2
+    # 3 shards do not split the full BA's 256 point slots evenly
+    from snakeslam_tpu_torch.parallel.multichip import dryrun_map
+
+    s3, smap3, _ = dryrun_map(3)
+    with pytest.raises(ValueError, match="equal shards"):
+        GlobalBA(s3, smap3, "cpu").full_ba(iterations=1)
