@@ -129,16 +129,31 @@ exits non-zero:
      card against CPU, timed; Input over the sequence with the filter off
      and on (features with depth per frame);
  29. TSDF: the lane's first 30 depth frames fused at V = 128 and 256 on
-     the card and the CPU, compared and timed.
+     the card and the CPU, compared and timed;
+ 30. graphs: the four compiled programs (utils/graphs.py) on the inputs
+     the lanes gave them (the smooth lane's window and local BA, the CLI
+     lane's coarse and fine tracking steps): a replay of the captured CUDA
+     graph against the eager run inside ``graphs.disabled()``, bit for bit,
+     and against a rerun; the device time of a replay (CUDA events around
+     it) beside the wall time of an eager call and of a compiled call;
+     captures, replays, cache entries and pool MiB of every program.
 
-``--only a,b`` runs the build and then only the named phases of 13-29
+The lanes run their compiled programs as graphs (on by default on the
+card): each lane's phase line holds its captures and replays (``graphs``),
+and the smooth, pixels, loop, mono-VI and CLI lanes are gated on one
+replay per call (or one capture for a key met first); the async CLI run
+on a local-BA graph captured on a worker thread while the main thread
+replayed the tracking steps.
+
+``--only a,b`` runs the build and then only the named phases of 13-30
 (``loop``: 13-15; ``multichip``: 13 and 16-19; ``mono_vi``,
-``vi_solvers``, ``mono_vi_cpu_gpu``, ``cli``) and prints no result line:
-for iterating on one lane.
+``vi_solvers``, ``mono_vi_cpu_gpu``, ``cli``; ``graphs``: 7, 24, 25 and
+30) and prints no result line: for iterating on one lane.
 
 The line before the last is one JSON object with the kernels' names,
 routes, launch counts, errors, times (``ms`` per call, ``device_ms`` per
-launch), roofline bounds (``bound_ms``, ``bound_by``: inputs read once and
+launch; for the pose kernel also the device time of a window replay that
+holds it), roofline bounds (``bound_ms``, ``bound_by``: inputs read once and
 outputs written once at 3.35 TB/s, operations at 67 TFLOP/s f32, the H100
 SXM's published peaks) and library-call times (``library_ms``, null where
 no single PyTorch call computes the same function); the last line is the
@@ -158,6 +173,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -184,6 +200,7 @@ from snakeslam_tpu_torch.loop import loop_closing as LC
 from snakeslam_tpu_torch.loop.keyframe_database import KeyframeDatabase
 from snakeslam_tpu_torch.map import serialization as SER
 from snakeslam_tpu_torch.map.serialization import load_map, save_map
+from snakeslam_tpu_torch.mapping import fusion as FUS
 from snakeslam_tpu_torch.mapping import local_mapping as LM
 from snakeslam_tpu_torch.models import tracking_step as TS
 from snakeslam_tpu_torch.models import window_step as WS
@@ -197,6 +214,7 @@ from snakeslam_tpu_torch.ops import sim3_solver as SIM3
 from snakeslam_tpu_torch.ops import tsdf as TSDF
 from snakeslam_tpu_torch.ops.descriptors import hamming_matrix
 from snakeslam_tpu_torch.optim import gba as GBA
+from snakeslam_tpu_torch.optim import lba as LBA
 from snakeslam_tpu_torch.optim import simplification as SIMP
 from snakeslam_tpu_torch.parallel import multichip as MC
 from snakeslam_tpu_torch.system.settings import InputType, Settings
@@ -204,10 +222,11 @@ from snakeslam_tpu_torch.ops.triangulate_pairs import triangulate_pairs_batch
 from snakeslam_tpu_torch.system import slam as SLAM
 from snakeslam_tpu_torch.system.slam import SlamSystem
 from snakeslam_tpu_torch.tracking import mono_init as MI
+from snakeslam_tpu_torch.tracking import tracker as TR
 from snakeslam_tpu_torch.tracking.staging import HostCopy
 from snakeslam_tpu_torch.tracking import windowed as WIN
 from snakeslam_tpu_torch.tracking.windowed import WindowedRunner
-from snakeslam_tpu_torch.utils import cuda_build
+from snakeslam_tpu_torch.utils import cuda_build, graphs
 from snakeslam_tpu_torch.utils import loop_problems as LP
 from snakeslam_tpu_torch.utils import tum_fixture as TF
 from snakeslam_tpu_torch.utils import vi_problems as VP
@@ -719,6 +738,7 @@ def pixels_phase(dev, lane) -> dict:
     torch.cuda.synchronize()
 
     system, seq, runner = pixels_run(lane, dev)
+    g0 = graph_counts()
     OK.FAST_LAUNCHES = 0
     PF.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -726,6 +746,7 @@ def pixels_phase(dev, lane) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fast, pose = OK.FAST_LAUNCHES, PF.LAUNCHES
+    g = graph_delta(g0)
     tracked = len(system.tracker.trajectory)
     ate, _, _ = system.ate_against_gt(with_scale=False)
     levels = lane["settings"].fd_levels
@@ -735,7 +756,9 @@ def pixels_phase(dev, lane) -> dict:
           ate_m=ate, wall_s=wall, fps=tracked / wall,
           image="752x480 uint8 stereo pairs, 1000 features",
           fast_launches=fast, pose_launches=pose,
-          device_calls=runner.n_device_calls, jax_cpu=JAX_PIXELS)
+          device_calls=runner.n_device_calls, graphs=g, jax_cpu=JAX_PIXELS,
+          card=card_line())
+    check_one_replay_per_call(g, dict(window_track=runner.n_device_calls))
     check(fast == levels * chunks,
           f"{fast} FAST launches for {chunks} chunks of {levels} levels")
     check(pose == 2 * runner.window * runner.n_device_calls,
@@ -847,19 +870,26 @@ def slice_phase(dev):
 
     system, frames = smooth_lane(7, 400, dev)
     runner = WindowedRunner(system, window=128)
-    PF.LAUNCHES = 0
-    t0 = time.perf_counter()
-    runner.run(frames)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = PF.LAUNCHES
+    g0 = graph_counts()
+    with KeepInputs(WIN, "window_track", dev) as win, \
+            KeepInputs(LBA, "solve_window", dev) as lba:
+        PF.LAUNCHES = 0
+        t0 = time.perf_counter()
+        runner.run(frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = PF.LAUNCHES
+    g = graph_delta(g0)
     tracked = len(system.tracker.trajectory)
     ate, _, _ = system.ate_against_gt(with_scale=False)
     counts = backend_counts(system)
     phase("slice", frames=len(frames), tracked=tracked,
           keyframes=system.map.n_keyframes, points=system.map.n_points,
           ate_m=ate, wall_s=wall, fps=tracked / wall, launches=launches,
-          device_calls=runner.n_device_calls, **counts, jax_cpu=JAX_SMOOTH)
+          device_calls=runner.n_device_calls, graphs=g,
+          window_replays_per_call=g.get("window_track", {}).get(
+              "replays", 0) / runner.n_device_calls,
+          **counts, jax_cpu=JAX_SMOOTH, card=card_line())
     check(tracked == JAX_SMOOTH["tracked"], f"tracked {tracked} of 400 frames")
     check(abs(system.map.n_keyframes - JAX_SMOOTH["keyframes"]) <= 1,
           f"{system.map.n_keyframes} keyframes, the JAX run "
@@ -873,7 +903,14 @@ def slice_phase(dev):
               f"{k} {counts[k]}, the JAX run {JAX_SMOOTH[k]}")
     check(launches == 2 * runner.window * runner.n_device_calls,
           f"{launches} kernel launches for {runner.n_device_calls} windows")
-    return launches, system
+    # every call of the window and local-BA programs is one replay, or the
+    # capture of a key the warm-up run did not meet
+    check_one_replay_per_call(g, dict(window_track=win.calls,
+                                      lba_solve=lba.calls))
+    check(win.calls == runner.n_device_calls,
+          f"{win.calls} window calls for {runner.n_device_calls} windows")
+    return launches, system, dict(window_track=win.kept(),
+                                  lba_solve=lba.kept())
 
 
 def kf_cycle_phase(system, reps: int = 3):
@@ -1057,6 +1094,78 @@ class Probe:
         setattr(self.owner, self.name, self.inner)
 
 
+def graph_counts() -> dict:
+    """{compiled program: (captures, replays)} so far."""
+    return {p.name: (p.captures, p.replays) for p in graphs.programs()}
+
+
+def graph_delta(before: dict) -> dict:
+    """Captures and replays of each compiled program since ``before``
+    (``graph_counts()``), for the programs that ran."""
+    out = {}
+    for name, (c, r) in graph_counts().items():
+        c0, r0 = before.get(name, (0, 0))
+        if (c, r) != (c0, r0):
+            out[name] = dict(captures=c - c0, replays=r - r0)
+    return out
+
+
+def _to_card(x, dev):
+    """A copy of an argument tree with every tensor on ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, copy=True)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to_card(v, dev) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_card(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: _to_card(v, dev) for k, v in x.items()}
+    return x
+
+
+def check_one_replay_per_call(delta: dict, calls: dict):
+    """Each program in ``calls`` ran one replay a call, or a capture for a
+    key met for the first time (``delta``: ``graph_delta``)."""
+    for name, n in calls.items():
+        d = delta.get(name, dict(captures=0, replays=0))
+        check(d["replays"] + d["captures"] == n and n > 0,
+              f"{name}: {d} for {n} calls")
+
+
+class KeepInputs:
+    """While installed in place of the compiled program ``owner.name``,
+    keeps a copy on the card of the arguments of its ``nth`` call (with
+    ``armed``: of its first call while ``armed()`` is true), taken before
+    the call: a program's static outputs passed back in, such as the
+    window's carry, are overwritten by later replays."""
+
+    def __init__(self, owner, name, dev, nth: int = 2, armed=None):
+        self.owner, self.name, self.dev, self.nth = owner, name, dev, nth
+        self.armed = armed
+        self.prog = getattr(owner, name)
+        self.calls = 0
+        self.args = None
+
+    def __enter__(self):
+        def wrapped(*a, **k):
+            self.calls += 1
+            if self.args is None and (self.armed() if self.armed
+                                      else self.calls == self.nth):
+                self.args = (_to_card(a, self.dev), _to_card(k, self.dev))
+            return self.prog(*a, **k)
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.prog)
+
+    def kept(self):
+        check(self.args is not None,
+              f"{self.name} was called {self.calls} times, fewer than "
+              f"{self.nth}")
+        return self.prog, self.args
+
+
 def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
     """The loop lane with ``n_devices`` shards for the global BA, then
     ``finalize()``; gated on the JAX package's CPU run with as many
@@ -1089,6 +1198,9 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
              Probe(WIN._InFlight, "fetch"),
              Probe(SlamSystem, "process_frame"),
              Probe(LM.LocalMapper, "dispatch_deferred"),
+             Probe(LM.LocalMapper, "_tri_dispatch"),
+             Probe(FUS.MapSearcher, "dispatch"),
+             Probe(LBA.LocalBA, "dispatch"),
              Probe(LM.LocalMapper, "commit_deferred"),
              Probe(LC.LoopClosing, "process"),
              Probe(LM.LocalMapper, "process_sync")]
@@ -1100,12 +1212,14 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
         full = stack.enter_context(Probe(GBA.GlobalBA, "full_ba"))
         sharded = stack.enter_context(
             Probe(GBA.GlobalBA, "_sharded_full_ba"))
+        g0 = graph_counts()
         PF.LAUNCHES = 0
         t0 = time.perf_counter()
         runner.run(frames)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         run_launches = PF.LAUNCHES
+    g = graph_delta(g0)
     host_s = {f"{t.owner.__name__}.{t.name}": [t.seconds, t.calls]
               for t in timed}
     tracked = len(system.tracker.trajectory)
@@ -1138,7 +1252,7 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
           loop_correction_ms=correct_ms, finalize_s=finalize_s,
           keyframes_final=kfs_final, points_final=system.map.n_points,
           ate_final_m=ate_final, device_calls=runner.n_device_calls,
-          pose_launches=dict(tracking=tracking,
+          graphs=g, pose_launches=dict(tracking=tracking,
                              verification=verify.launches,
                              realign=finalize_launches),
           verifications=verify.calls, realign_batch=realign.out,
@@ -1168,6 +1282,7 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
           "verifications")
     check(tracking == 2 * LOOP_WINDOW * runner.n_device_calls,
           f"{tracking} tracking launches for {runner.n_device_calls} windows")
+    check_one_replay_per_call(g, dict(window_track=runner.n_device_calls))
     check(realign.calls == 2 and finalize_launches == 2
           and all(b > 0 for b in realign.out),
           f"{finalize_launches} pose launches for the realign calls "
@@ -1580,18 +1695,24 @@ def mono_vi_lane_phase(dev) -> dict:
     with contextlib.ExitStack() as stack:
         for t in timed:
             stack.enter_context(t)
-        # the windows' pose problems once gravity and scale are in
-        window = stack.enter_context(
-            CapturePose(WS, lambda: sol.gravity_initialized))
+        # a window's inputs once gravity and scale are in
+        kept = stack.enter_context(KeepInputs(
+            WIN, "window_track", dev, armed=lambda: sol.gravity_initialized))
         landed = watch_landings(system)
+        g0 = graph_counts()
         PF.LAUNCHES = 0
         t0 = time.perf_counter()
         runner.run(frames)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         run_launches = PF.LAUNCHES
+    g = graph_delta(g0)
     host_s = {f"{t.owner.__name__}.{t.name}": [t.seconds, t.calls]
               for t in timed}
+    # that window again, eagerly, for the pose problems its replay solved
+    prog, (a, k) = kept.kept()
+    with graphs.disabled(), CapturePose(WS, lambda: True) as window:
+        prog(*a, **k)
     before = vi_summary(system)
     final_probes = [Probe(VIS.ImuStateSolver, "_solve_chain"),
                     Probe(GBA.GlobalBA, "full_ba")]
@@ -1612,7 +1733,7 @@ def mono_vi_lane_phase(dev) -> dict:
     phase("mono_vi_lane", frames=len(frames), window=VP.WINDOW, **before,
           landed=landed, chain_restarts=runner.n_chain_restarts,
           device_calls=runner.n_device_calls, depth=runner.depth,
-          wall_s=wall, fps=tracked / wall, finalize_s=finalize_s,
+          graphs=g, wall_s=wall, fps=tracked / wall, finalize_s=finalize_s,
           final={k: after[k] for k in ("keyframes", "points", "sim3_ate_m",
                                        "align_scale", "bg_err", "stage")},
           pose_launches=dict(tracking=run_launches,
@@ -1649,6 +1770,7 @@ def mono_vi_lane_phase(dev) -> dict:
     check(run_launches == 2 * VP.WINDOW * runner.n_device_calls,
           f"{run_launches} tracking launches for {runner.n_device_calls} "
           "windows")
+    check_one_replay_per_call(g, dict(window_track=runner.n_device_calls))
     check(realign.calls == 2 and finalize_launches == 2
           and all(b > 0 for b in realign.out),
           f"{finalize_launches} pose launches for the realign calls "
@@ -1849,12 +1971,14 @@ def cli_run(ini: Path, data: Path, out: Path, dev) -> dict:
         realign_kernel = stack.enter_context(Probe(GBA, "pose_refine_fused"))
         verify = stack.enter_context(Probe(LC, "pose_refine_fused"))
         stack.enter_context(contextlib.redirect_stdout(text))
+        g0 = graph_counts()
         OK.FAST_LAUNCHES = 0
         PF.LAUNCHES = 0
         rc = cli_main([str(ini), "--dataset", str(data), "--outDir",
                        str(out), "--device", str(dev)])
         torch.cuda.synchronize()
         fast, pose = OK.FAST_LAUNCHES, PF.LAUNCHES
+        g = graph_delta(g0)
     check(rc == 0, f"the CLI returned {rc}")
     system = stages["finalize"].args[0][0]
     tracked = len(system.tracker.trajectory)
@@ -1868,7 +1992,7 @@ def cli_run(ini: Path, data: Path, out: Path, dev) -> dict:
                 points=system.map.n_points, ate_m=ate, ate_matched=n,
                 wall_s=wall, fps=tracked / wall,
                 finalize_s=stages["finalize"].seconds, host_s=host_s,
-                fast=fast, pose=pose, realign_calls=realign.calls,
+                graphs=g, fast=fast, pose=pose, realign_calls=realign.calls,
                 realign_launches=realign.launches,
                 realign_args=realign_kernel.args,
                 verification_launches=verify.launches,
@@ -1899,10 +2023,13 @@ def cli_tum_phase(dev, lane, tmp: Path) -> dict:
     a subprocess over its first 30 frames."""
     data = lane["root"]
     ini = TF.copy_config(tmp / "tum.ini")
-    r = cli_run(ini, data, tmp / "out", dev)
+    with KeepInputs(TR, "coarse_step", dev) as coarse, \
+            KeepInputs(TR, "fine_step", dev) as fine:
+        r = cli_run(ini, data, tmp / "out", dev)
+    r["kept"] = dict(coarse_step=coarse.kept(), fine_step=fine.kept())
     J, O = JAX_CLI, JAX_CLI_OWN_ORB
     shown = {k: v for k, v in r.items()
-             if k not in ("system", "realign_args")}
+             if k not in ("system", "realign_args", "kept")}
     phase("cli_tum", frames=CLI_FRAMES, **shown, jax_cpu=J,
           jax_cpu_own_orb=O, ate_ratio=r["ate_m"] / J["ate_m"],
           ate_ratio_own_orb=r["ate_m"] / O["ate_m"])
@@ -1923,6 +2050,8 @@ def cli_tum_phase(dev, lane, tmp: Path) -> dict:
           f"CLI lane ATE {r['ate_m']} m, the JAX run with its own ORB "
           f"{O['ate_m']} m")
     check_cli_counts("cli_tum", r)
+    check_one_replay_per_call(r["graphs"], dict(coarse_step=coarse.calls,
+                                                fine_step=fine.calls))
     out = tmp / "out_subprocess"
     t0 = time.perf_counter()
     p = subprocess.run(
@@ -2033,11 +2162,25 @@ def cli_tum_async_phase(dev, lane, tmp: Path, sync: dict) -> None:
     producer thread, the local BA and the back-end queues on workers."""
     ini = TF.copy_config(tmp / "tum_async.ini", async_mode="true",
                    async_lba="true")
+    main = threading.get_ident()
+    before = {id(e) for e in LBA.solve_window.entries()}
     r = cli_run(ini, lane["root"], tmp / "out_async", dev)
+    # the local BA captured on the worker while the main thread replayed
+    # the tracking steps
+    worker = [e for e in LBA.solve_window.entries()
+              if id(e) not in before and e.thread != main]
     shown = {k: v for k, v in r.items()
              if k not in ("system", "realign_args")}
     phase("cli_tum_async", frames=CLI_FRAMES, **shown,
+          lba_graphs_captured_on_workers=len(worker),
+          lba_replays_on_workers=sum(e.replays for e in worker),
           sync_wall_s=sync["wall_s"], sync_ate_m=sync["ate_m"])
+    check(len(worker) >= 1 and r["graphs"]["lba_solve"]["captures"] >= 1,
+          f"no local-BA graph captured on a worker thread: {r['graphs']}")
+    check(all(r["graphs"].get(p, {}).get("replays", 0) > 0
+              for p in ("coarse_step", "fine_step")),
+          f"the tracking steps did not replay in the async run: "
+          f"{r['graphs']}")
     check(r["system"].s.async_mode and r["system"]._async_lba is not None,
           "the async INI did not turn async mode on")
     check(r["tracked"] >= 0.99 * sync["tracked"],
@@ -2171,7 +2314,87 @@ def cli_phases(dev) -> dict:
             if cpu_run[0].poll() is None:
                 cpu_run[0].kill()
                 cpu_run[0].wait()
-    return dict(fast=sync["fast"], pose=sync["pose"])
+    return dict(fast=sync["fast"], pose=sync["pose"], kept=sync["kept"])
+
+
+def _host_leaves(tree) -> list:
+    """The tensors of an output tree as host arrays, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree.cpu().numpy()]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    return [a for v in tree for a in _host_leaves(v)]
+
+
+def _same_bits(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and x.tobytes() == y.tobytes() for x, y in zip(a, b))
+
+
+def replay_us(graph, reps: int = 20) -> float:
+    """Device time of one replay of ``graph`` in microseconds: the median
+    CUDA-event interval around a replay, replays back to back."""
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) * 1e3)
+    return statistics.median(times)
+
+
+def graphs_phase(kept: dict) -> dict:
+    """Each compiled program on the inputs a lane gave it (``kept``: name
+    -> (program, (args, kwargs))): a replay against the eager run inside
+    ``graphs.disabled()``, bit for bit, and against a rerun; the device
+    time of a replay (CUDA events around it) beside the wall time of an
+    eager call and of a compiled call (its input copies and the replay);
+    then captures, replays, cache entries and pool MiB of every program."""
+    rows = {}
+    for name, (prog, (a, k)) in kept.items():
+        prog(*a, **k)             # this thread's graph of the key
+        torch.cuda.synchronize()
+        replay = _host_leaves(prog(*a, **k))
+        rerun = _host_leaves(prog(*a, **k))
+        eager_ms, call_ms = [], []
+        with graphs.disabled():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = prog(*a, **k)
+                torch.cuda.synchronize()
+                eager_ms.append((time.perf_counter() - t0) * 1e3)
+            eager = _host_leaves(out)
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prog(*a, **k)
+            torch.cuda.synchronize()
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+        rows[name] = dict(
+            bit_identical=_same_bits(replay, eager),
+            rerun_bit_identical=_same_bits(replay, rerun),
+            device_us_per_replay=replay_us(prog.graph(*a, **k)),
+            eager_wall_ms=statistics.median(eager_ms),
+            call_wall_ms=statistics.median(call_ms))
+        if not rows[name]["bit_identical"]:
+            rows[name]["max_abs_diff"] = [
+                float(np.max(np.abs(x.astype(np.float64)
+                                    - y.astype(np.float64))))
+                if x.size else 0.0 for x, y in zip(replay, eager)]
+    st = graphs.stats()
+    phase("graphs", programs=rows, stats=st, card=card_line())
+    for name, r in rows.items():
+        check(r["bit_identical"], f"{name}: the graph's replay differs "
+              f"from the eager run: {r.get('max_abs_diff')}")
+        check(r["rerun_bit_identical"], f"{name}: a rerun differs")
+    return rows
 
 
 def main() -> int:
@@ -2206,13 +2429,19 @@ def main() -> int:
             mono_vi_cpu_gpu_phase(dev)
         if "cli" in only:
             cli_phases(dev)
+        if "graphs" in only:
+            _, _, kept = slice_phase(dev)
+            with tempfile.TemporaryDirectory() as tmp:
+                tmp = Path(tmp)
+                sync = cli_tum_phase(dev, tum_render_phase(tmp / "tum"), tmp)
+            graphs_phase({**kept, **sync["kept"]})
         print(card_line(), flush=True)
         return 0
     kern = kernel_phase(dev)
     lane = render_pixels_lane()
     fast = fast_phase(dev, lane)
     patch = patch_phase(dev)
-    smooth_launches, smooth = slice_phase(dev)
+    smooth_launches, smooth, kept = slice_phase(dev)
     kf_cycle_phase(smooth)
     pix = pixels_phase(dev, lane)
     cpu_gpu_phase(dev)
@@ -2228,6 +2457,7 @@ def main() -> int:
     vi_solvers_phase(dev)
     mono_vi_cpu_gpu_phase(dev)
     cli = cli_phases(dev)
+    programs = graphs_phase({**kept, **cli["kept"]})
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "pose_refine_fused",
@@ -2245,6 +2475,10 @@ def main() -> int:
         # the mono-VI lane's own fine (2 x 2) problem, every row mono
         "mono_device_ms": mono_fine["device_us"] / 1e3,
         "mono_bound_ms": mono_fine["bound_us"] / 1e3,
+        # one replay of the smooth lane's window graph (W = 128): the
+        # kernel launched twice a frame inside it
+        "window_replay_device_ms":
+            programs["window_track"]["device_us_per_replay"] / 1e3,
     }, {
         "name": "fast_score_batch",
         "route": "cuda",

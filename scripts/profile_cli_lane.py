@@ -12,7 +12,9 @@ JSON object: host ms a frame for ORB and for tracking, the top host
 functions by own time and by cumulative time, the device kernels and
 runtime calls per frame (launches, synchronizing calls, copies), the
 device's busy share of the profiled frames and the top device kernels by
-count.  Needs a CUDA device.
+count.  The tracking steps run as captured CUDA graphs (``utils/
+graphs.py``): a replay shows as one ``cudaGraphLaunch`` among the runtime
+calls.  Needs a CUDA device.
 """
 
 from __future__ import annotations

@@ -11,10 +11,13 @@ back-end; the options do not apply) and also times the front-end alone on
 one chunk (median of CUDA-event times).  Each lane runs once to warm up and
 once under torch.profiler; the script prints one JSON object: wall time,
 summed device kernel time, the device's busy share of the wall, the launch
-counts, the top device kernels by total time, and the keyframe cycle's
-share: the device kernels launched while the local mapper dispatched or
-committed a keyframe cycle (triangulation, fusion, local BA and the
-back-end queues it feeds), with their count and device time, and the same
+counts (device kernels, and the host's launch calls a frame: kernel and
+CUDA-graph launches, copies), the compiled programs' replays
+(``utils/graphs.py``), the top device kernels by total time, and the
+keyframe cycle's share: the device kernels launched while the local
+mapper dispatched or committed a keyframe cycle (triangulation, fusion,
+local BA and the back-end queues it feeds), with their count and device
+time, and the same
 for each stage's dispatch (triangulation, fusion, local BA), and the pose
 and FAST kernels' device time per launch from the profile.  Needs a CUDA
 device.
@@ -38,6 +41,11 @@ from snakeslam_tpu_torch.frontend.pixels import stereo_frontend_batch  # noqa: E
 from snakeslam_tpu_torch.ops import orb_kernels as OK  # noqa: E402
 from snakeslam_tpu_torch.ops import pose_fused as PF  # noqa: E402
 from snakeslam_tpu_torch.tracking.windowed import WindowedRunner  # noqa: E402
+from snakeslam_tpu_torch.utils import graphs  # noqa: E402
+
+# host runtime calls that put work on the device
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def _frontend_us(lane, dev) -> float:
@@ -139,6 +147,7 @@ def main() -> int:
             torch.profiler.ProfilerActivity.CUDA]
     PF.LAUNCHES = 0
     OK.FAST_LAUNCHES = 0
+    g0 = {p.name: p.replays for p in graphs.programs()}
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         runner.run(frames)
@@ -153,6 +162,10 @@ def main() -> int:
         events = [e for e in prof.key_averages()
                   if getattr(e, "self_device_time_total", 0) > 0
                   and not e.key.startswith(KF_CYCLE)]
+    runtime = {e.key: e.count for e in prof.key_averages()
+               if e.key in LAUNCH_CALLS}
+    replays = {p.name: p.replays - g0.get(p.name, 0)
+               for p in graphs.programs() if p.replays > g0.get(p.name, 0)}
     dev_us = sum(e.self_device_time_total for e in events)
     n_kernels = sum(e.count for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:args.top]
@@ -169,7 +182,12 @@ def main() -> int:
         "tracked": len(system.tracker.trajectory),
         "wall_s": wall, "device_kernel_s": dev_us / 1e6,
         "device_busy_share": dev_us / 1e6 / wall,
-        "device_kernels": n_kernels, "pose_kernel_launches": PF.LAUNCHES,
+        "device_kernels": n_kernels,
+        "device_kernels_per_frame": n_kernels / len(frames),
+        "host_launch_calls": runtime,
+        "host_launch_calls_per_frame": sum(runtime.values()) / len(frames),
+        "graph_replays": replays,
+        "pose_kernel_launches": PF.LAUNCHES,
         "fast_kernel_launches": OK.FAST_LAUNCHES,
         "pose_kernel_device_us_per_launch": _device_us_per_launch(
             events, "pose_refine_kernel"),

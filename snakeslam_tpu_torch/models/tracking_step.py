@@ -5,6 +5,14 @@ frames the windowed scan does not track: the first frame after
 initialization and chain restarts after a tracking failure.  Each step is
 projection matching + robust pose refine with the motion prior; results
 stay on the device until the tracker reads them.
+
+On the card each step is a compiled program (``utils/graphs.py``), as the
+JAX package jits them: one captured CUDA graph replayed per call, keyed by
+the local map's fixed width and ``use_rotation_hist``.  The plain
+``robust_pose_refine`` stays in them, as in the JAX package: its 6x6 solve
+is closed-form, so it captures.  A replay returns the graph's static
+outputs, valid until the step's next call; the tracker copies ``packed``
+to the host at once and hands ``T`` to the fine step before then.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ import torch
 from snakeslam_tpu_torch.core.camera import Pinhole
 from snakeslam_tpu_torch.ops import matching as M
 from snakeslam_tpu_torch.ops.pose_solver import PoseObs, robust_pose_refine
+from snakeslam_tpu_torch.utils import graphs
 
 # tracking constants (reference: Snake/Tracking/Tracking.h:181-189)
 COARSE_MIN_INLIERS_LAST_FRAME = 20
@@ -30,7 +39,7 @@ def _scale_tables(scales, log_scale_factor):
                          levels=scales.shape[0])
 
 
-def coarse_step(
+def _coarse_step(
     lm: M.LocalMapPoints,
     frame: M.FrameFeatures,
     T_pred: torch.Tensor,
@@ -86,7 +95,7 @@ def coarse_step(
             "packed": packed}
 
 
-def fine_step(
+def _fine_step(
     lm: M.LocalMapPoints,
     frame: M.FrameFeatures,
     T_coarse: torch.Tensor,
@@ -131,7 +140,10 @@ def fine_step(
     )
     visible = out["visible"]
     found = torch.zeros(P + 1, dtype=torch.bool, device=pos.device)
-    found[torch.where(fine_matched & inlier, fine_assign, P).long()] = True
+    # index_fill_ takes the value as a kernel argument: a Python number
+    # written by indexing is copied from the host, which cannot be captured
+    found.index_fill_(0, torch.where(fine_matched & inlier, fine_assign,
+                                     P).long(), True)
     found = found[:P]
     fine_assign_out = torch.where(inlier, fine_assign, -1)
     packed = torch.cat([
@@ -145,3 +157,8 @@ def fine_step(
     return {"T": T, "fine_assign": fine_assign_out, "inlier": inlier,
             "matched": matched, "n_inliers": n_inl, "visible": visible,
             "found": found, "packed": packed}
+
+
+coarse_step = graphs.compiled(_coarse_step, static=("use_rotation_hist",),
+                              name="coarse_step")
+fine_step = graphs.compiled(_fine_step, name="fine_step")

@@ -18,10 +18,20 @@ as the JAX package does off the TPU.
 
 Frame payloads travel as one flat f32 buffer with descriptor bytes
 bit-cast into f32 lanes; that region is only sliced and re-viewed as
-bytes, never passed through arithmetic or ``torch.where``.
+bytes, never passed through arithmetic or ``torch.where``.  Frame times
+are packed relative to a per-chain origin ``t0`` (``time_origin``): a
+float32 row cannot hold a unix time (~1.3e9 s, a float32 step of 128 s)
+to the half second the keyframe time rule needs.
+
+On the card ``window_track`` is a compiled program (``utils/graphs.py``):
+one captured CUDA graph replayed per window, keyed by (W, ``n_slots``, the
+snapshot bucket P, ``two_stage``, ``use_imu``); every input is a tensor,
+as in the JAX signature, so one graph serves every window of a key.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -32,6 +42,7 @@ from snakeslam_tpu_torch.ops import matching as M
 from snakeslam_tpu_torch.ops.descriptors import unpack_bits
 from snakeslam_tpu_torch.ops.pose_fused import pose_refine_fused
 from snakeslam_tpu_torch.ops.pose_solver import PoseObs, robust_pose_refine
+from snakeslam_tpu_torch.utils import graphs
 
 # packed frame layout (per frame, all f32):
 #   uv (N,2) | right (N,) | octave (N,) | angle (N,) | packed desc (N,8
@@ -45,17 +56,31 @@ FRAME_SCALARS = 2 + 9
 DEC_SIZE = 10
 
 
+TIME_ORIGIN_STEP = 1024.0   # s: t0 is a multiple of it
+
+
 def frame_buffer_width(n_slots: int) -> int:
     return n_slots * (2 + 1 + 1 + 1 + 8) + FRAME_SCALARS
 
 
-def _pack_one_np(f, n_slots: int) -> np.ndarray:
-    """Pack one FrameData into its (K,) f32 row (cached on the frame; the
-    cache is invalid when the gyro prediction changed since)."""
+def time_origin(t_first: float) -> float:
+    """The origin packed frame times are taken from, for a chain whose
+    first frame is at ``t_first`` s: ``1024 * floor(t_first / 1024)``, in
+    float64 on the host.  Below 1024 s it is 0, so a synthetic lane packs
+    the same bits as the JAX package; at unix times the packed residual
+    stays below 1024 s, a float32 step of ~6e-5 s."""
+    return TIME_ORIGIN_STEP * math.floor(t_first / TIME_ORIGIN_STEP)
+
+
+def _pack_one_np(f, n_slots: int, t0: float = 0.0) -> np.ndarray:
+    """Pack one FrameData into its (K,) f32 row, its time relative to
+    ``t0`` (cached on the frame; the cache is invalid when the gyro
+    prediction or the time origin changed since)."""
     cache = getattr(f, "_packed_row", None)
     dR = getattr(f, "imu_dR_cam", None)
     if (cache is not None and cache.shape[0] == frame_buffer_width(n_slots)
-            and getattr(f, "_packed_dR", None) is dR):
+            and getattr(f, "_packed_dR", None) is dR
+            and getattr(f, "_packed_t0", None) == t0):
         return cache
     n = min(f.n, n_slots)
     row = np.zeros(frame_buffer_width(n_slots), dtype=np.float32)
@@ -73,19 +98,22 @@ def _pack_one_np(f, n_slots: int) -> np.ndarray:
         f.descriptors[:n], dtype=np.uint8).view(np.float32).ravel()
     o += n_slots * 8
     row[o] = n
-    row[o + 1] = f.timestamp
+    row[o + 1] = f.timestamp - t0
     row[o + 2:o + 11] = (np.eye(3, dtype=np.float32).ravel()
                          if dR is None
                          else np.asarray(dR, np.float32).ravel())
     f._packed_row = row
     f._packed_dR = dR
+    f._packed_t0 = t0
     return row
 
 
-def pack_frames_np(frames, n_slots: int, out: np.ndarray | None = None):
+def pack_frames_np(frames, n_slots: int, out: np.ndarray | None = None,
+                   t0: float = 0.0):
     """Host-side packing of a FrameData list -> (W, K) f32 buffer, written
-    into ``out`` (e.g. a pinned staging buffer) when given."""
-    rows = [_pack_one_np(f, n_slots) for f in frames]
+    into ``out`` (e.g. a pinned staging buffer) when given; frame times
+    relative to ``t0`` (``time_origin``)."""
+    rows = [_pack_one_np(f, n_slots, t0) for f in frames]
     if out is None:
         return np.stack(rows)
     np.stack(rows, out=out)
@@ -95,7 +123,8 @@ def pack_frames_np(frames, n_slots: int, out: np.ndarray | None = None):
 def make_dec_state(last_kf_matches: float, last_kf_time: float,
                    last_kf_center: np.ndarray, last_kf_viewdir: np.ndarray,
                    median_depth: float, frames_since_kf: int) -> np.ndarray:
-    """Host-side construction of the keyframe-decision carry vector."""
+    """Host-side construction of the keyframe-decision carry vector
+    (``last_kf_time`` relative to the chain's time origin)."""
     dec = np.zeros(DEC_SIZE, dtype=np.float32)
     dec[0] = last_kf_matches
     dec[1] = last_kf_time
@@ -124,7 +153,7 @@ def _unpack_frame(buf: torch.Tensor, n_slots: int):
                            desc_bits=bits, valid=valid), ts, dR_imu
 
 
-def window_track(
+def _window_track(
     lm: M.LocalMapPoints,
     frames_buf: torch.Tensor,       # (W, K) packed frames
     T_last: torch.Tensor,           # (4, 4) pose of the previous frame
@@ -141,8 +170,9 @@ def window_track(
     kfi_target: torch.Tensor,       # () target matches
     is_stereo: torch.Tensor,        # () bool
     th_depth: torch.Tensor,         # () close-point threshold
-    n_valid_frames: int,            # unpadded window length
-    med_override: float | None = None,  # refreshed median depth (> 0)
+    n_valid_frames: torch.Tensor,   # () unpadded window length
+    med_override: torch.Tensor | None = None,  # () refreshed median
+                                    # depth; <= 0 (or None): keep the carry's
     n_slots: int = 1024,
     two_stage: bool = True,
     use_imu: bool = False,
@@ -220,7 +250,7 @@ def window_track(
                          torch.ones(assign.shape[0], device=dev))
         return T2, assign, n2, outf["visible"].float(), found[:P]
 
-    zaxis = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=dev)
+    zaxis = torch.eye(3, dtype=torch.float32, device=dev)[2]
 
     def kf_decision(T, n_inl, ts, frame, assign, dec):
         """KeyframeDecision.cpp rules on the device against the carried
@@ -278,9 +308,15 @@ def window_track(
         dec_pass = torch.cat([dec[:9], frames_since_kf[None]])
         return need, torch.where(need, dec_fired, dec_pass)
 
-    if med_override is not None and med_override > 0:
-        dec_state = dec_state.clone()
-        dec_state[8] = med_override
+    n_valid_frames = torch.as_tensor(n_valid_frames, device=dev)
+    if med_override is not None:
+        # the host refreshed the median depth after a keyframe commit
+        med_override = torch.as_tensor(med_override, dtype=dec_state.dtype,
+                                       device=dev)
+        dec_state = torch.cat([
+            dec_state[:8],
+            torch.where(med_override > 0, med_override, dec_state[8])[None],
+            dec_state[9:]])
 
     T_last_c, vel, dec, stopped = T_last, velocity, dec_state, stopped_in
     W = frames_buf.shape[0]
@@ -298,15 +334,15 @@ def window_track(
                 lie.se3(dR_imu @ T_last_c[:3, :3], T_pred[:3, 3]))
         T, assign, n_inl, visible, found = track_one(T_pred, frame)
         ok = n_inl >= 25
-        padded = w >= n_valid_frames          # duplicated tail padding
-        active = (~stopped) & ok & (not padded)
+        padded = n_valid_frames <= w          # duplicated tail padding
+        active = (~stopped) & ok & (~padded)
         need_kf, dec_next = kf_decision(T, n_inl, ts, frame, assign, dec)
         need_kf = need_kf & active
         new_dec = torch.where(active, dec_next, dec)
         new_vel = torch.where(
             active, lie.orthonormalize(T @ lie.se3_inverse(T_last_c)), vel)
         new_T = torch.where(active, T, T_last_c)
-        stop_after = stopped | ((~ok) & (not padded))
+        stop_after = stopped | ((~ok) & (~padded))
         outs.append(torch.cat([
             T.reshape(-1),
             torch.stack([n_inl.float(), ok.float(), need_kf.float(),
@@ -320,3 +356,8 @@ def window_track(
     return (torch.stack(outs), torch.stack(assigns),
             vis_sum.to(torch.int32), fnd_sum.to(torch.int32),
             (T_last_c, vel, dec, stopped))
+
+
+window_track = graphs.compiled(
+    _window_track, static=("n_slots", "two_stage", "use_imu"),
+    name="window_track")

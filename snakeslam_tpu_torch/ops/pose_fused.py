@@ -17,7 +17,9 @@ frame with one problem: the C entry point is bound once and cached here,
 inputs are checked in one pass of attribute reads (the error is worked out
 only when a check fails), inputs that already are contiguous float32 are
 passed as they are, the three outputs are views of one allocation, and the
-stream handle is read without making a Stream.
+stream handle is read without making a Stream.  Its callers on the window
+and tracking paths run inside captured CUDA graphs (``utils/graphs.py``):
+there the launch is recorded, and ``LAUNCHES`` counts each replay's.
 """
 
 from __future__ import annotations
@@ -31,10 +33,10 @@ import torch
 from snakeslam_tpu_torch.core import lie
 from snakeslam_tpu_torch.core.camera import Pinhole
 from snakeslam_tpu_torch.ops.linalg import solve6x6_psd
-from snakeslam_tpu_torch.utils import cuda_build
+from snakeslam_tpu_torch.utils import cuda_build, graphs
 
 SOURCE = "pose_refine.cu"
-LAUNCHES = 0      # kernel launches since the last reset (wrapper count)
+LAUNCHES = 0      # kernel launches since the last reset (graph replays too)
 _COUNT_LOCK = threading.Lock()   # async mode launches from two threads
 MAX_N = 16384     # features of one problem: 2048 a CTA, 8 CTAs
 _entry = None     # the bound C entry point, set at the first launch
@@ -47,6 +49,12 @@ def _bind(lib):
                    + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
+
+
+def _count_launches(n: int):
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += n
 
 
 def _load_entry():
@@ -199,7 +207,6 @@ def _launch(T_init, points, uv, right, weight, mask, cam, bf, chi2_mono,
             chi2_stereo, outer_iters, inner_iters, damping):
     """One launch for (B, ...) or unbatched inputs; outputs take the
     inputs' batching."""
-    global LAUNCHES
     f32 = torch.float32
     lead = tuple(points.shape[:-1])
     fx, fy, cx, cy = cam
@@ -247,8 +254,9 @@ def _launch(T_init, points, uv, right, weight, mask, cam, bf, chi2_mono,
              cuda_build.raw_stream(points))
     if err:
         cuda_build.check_launch(err, "pose_refine_fused")
-    with _COUNT_LOCK:
-        LAUNCHES += 1
+    # under a graph capture this goes to the graph's tally: each replay
+    # adds the launches it holds
+    graphs.count(_count_launches)
     return T_out, inl, n_inl
 
 

@@ -78,8 +78,9 @@ def _residuals_jacobians(T, obs: PoseObs, cam: Pinhole, bf):
         dim=1,
     )
     J = Jp @ dpc
-    row_keep = torch.ones(3, dtype=J.dtype, device=J.device)
-    row_keep[2] = 0.0
+    # [1, 1, 0] made on the device: writing a Python number into a CUDA
+    # tensor copies it from the host, which a CUDA graph cannot capture
+    row_keep = (torch.arange(3, device=J.device) < 2).to(J.dtype)
     J = torch.where(has_stereo[:, None, None], J, J * row_keep[None, :, None])
     valid = obs.mask & z_ok
     return r, J, valid, has_stereo

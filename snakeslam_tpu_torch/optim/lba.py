@@ -8,6 +8,13 @@ guarded commit.  The solve is ``ops/ba.solve_ba`` with fixed (C, P, M)
 slots; P is bucketed so the shapes take at most three values per run.
 With an IMU state solver, the gyro relative-rotation factors between
 consecutive window keyframes fill the problem's relative-pose slots.
+
+On the card the solve and the outlier classification are one compiled
+program (``solve_window``, ``utils/graphs.py``): one captured CUDA graph
+replayed per local BA, keyed by the buckets (C, P, M, R) and the
+iteration count, captured on the thread that calls it (async mode's
+worker captures its own).  It returns copies of the graph's outputs: the
+pipelined commit reads them a keyframe cycle later.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from snakeslam_tpu_torch.optim.packing import (
 )
 from snakeslam_tpu_torch.system.settings import Settings
 from snakeslam_tpu_torch.tracking.staging import HostCopy
+from snakeslam_tpu_torch.utils import graphs
 
 F32 = np.float32
 
@@ -48,6 +56,19 @@ def pack_rpc(imu_solver, kfs, slot_of_kf, n_slots: int, dtype):
         rpc_w[r, 3:] = w_r
         rpc_valid[r] = True
     return rpc_i, rpc_j, rpc_T, rpc_w, rpc_valid
+
+
+def _solve_window(problem: BA.BAProblem, cam: Pinhole, bf: torch.Tensor,
+                  iterations: int = 3):
+    """LM solve + chi2 outlier classification of one local-BA problem:
+    (cam_pose, points, outlier mask)."""
+    cam_pose, points, _ = BA.solve_ba(problem, cam, bf, iterations=iterations)
+    outliers = BA.classify_outliers(problem, cam, bf, cam_pose, points)
+    return cam_pose, points, outliers
+
+
+solve_window = graphs.compiled(_solve_window, static=("iterations",),
+                               clone=True, name="lba_solve")
 
 
 class LocalBA:
@@ -178,11 +199,8 @@ class LocalBA:
             problem, aux = self.pack(window, boundary, pts)
             aux["state_before"] = state_before
 
-        cam_pose, points, _ = BA.solve_ba(problem, self.cam, self.bf,
-                                          iterations=iterations)
-        outliers = BA.classify_outliers(problem, self.cam, self.bf,
-                                        cam_pose, points)
-        return [cam_pose, points, outliers], aux
+        return list(solve_window(problem, self.cam, self.bf,
+                                 iterations=iterations)), aux
 
     def commit(self, kf: int, fetched, aux, check_state: bool = False):
         """Guarded write-back.  In the keyframe cycle (check_state=False)

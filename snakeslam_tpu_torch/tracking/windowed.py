@@ -4,10 +4,16 @@ Counterpart of ``snakeslam_tpu/tracking/windowed.py``.  Steady-state
 tracking runs W frames per ``window_track`` call with up to ``depth``
 windows in flight.  Windows chain their carry (pose / velocity /
 keyframe-decision state) on the device, so dispatching window k+1 never
-waits for window k.  Each window's
-packed frames go up from a pinned host buffer with a non-blocking copy;
-its results come back by non-blocking copies into pinned host tensors,
-queued at dispatch behind the window's compute (``staging.HostCopy``).
+waits for window k.  On the card each call is one replay of the window's
+captured CUDA graph (``utils/graphs.py``): its packed frames go up from a
+pinned host buffer straight into the graph's static frame input with a
+non-blocking copy, the previous window's carry outputs are copied into
+the static carry inputs on the device, and a refreshed snapshot into the
+static local-map inputs.  Its results come back by non-blocking copies
+into pinned host tensors, queued at dispatch right behind the replay
+(``staging.HostCopy``): nothing reads a window's device outputs after the
+next replay overwrites them.  Frame times are packed relative to the
+chain's time origin (``window_step.time_origin``).
 The keyframe decision runs in the loop against a carried virtual-keyframe
 state, so speculation stays valid across keyframes: the host inserts the
 real keyframe when it consumes the window that holds it, dispatches the
@@ -53,11 +59,12 @@ from snakeslam_tpu_torch.models.window_step import (
     frame_buffer_width,
     make_dec_state,
     pack_frames_np,
+    time_origin,
     window_track,
 )
 from snakeslam_tpu_torch.ops.imu import so3_exp_np
 from snakeslam_tpu_torch.system.settings import InputType
-from snakeslam_tpu_torch.tracking.staging import HostCopy
+from snakeslam_tpu_torch.tracking.staging import HostCopy, upload
 from snakeslam_tpu_torch.tracking.tracker import TrackingState
 
 
@@ -68,7 +75,7 @@ class _InFlight:
     results: tuple                # (outs, assign, vis, fnd) device tensors
     lm_ids: np.ndarray
     lm_gen: np.ndarray            # pt_alloc_gen of lm_ids at snapshot time
-    staging: object = None        # pinned upload buffer, alive until done
+    staging: object = None        # pinned upload buffers, alive until done
 
     def __post_init__(self):
         # the device->host copies queue behind the window's compute
@@ -200,7 +207,9 @@ class WindowedRunner:
 
     # ------------------------------------------------------------------
 
-    def _initial_dec_state(self) -> np.ndarray:
+    def _initial_dec_state(self, t0: float = 0.0) -> np.ndarray:
+        """The keyframe-decision carry of a chain whose time origin is
+        ``t0``."""
         t = self.tracker
         smap = t.map
         kf = t.last_kf
@@ -213,7 +222,7 @@ class WindowedRunner:
         med = smap.kf_median_depth[kf] or smap.compute_median_depth(kf)
         frames_since = (int(t.last_frame.frame_id)
                         - int(smap.kf_frame_id[kf]))
-        return make_dec_state(last_kf_matches, smap.kf_timestamp[kf],
+        return make_dec_state(last_kf_matches, smap.kf_timestamp[kf] - t0,
                               center, viewdir, max(med, 1e-3), frames_since)
 
     def _local_map(self):
@@ -272,7 +281,8 @@ class WindowedRunner:
 
     # ------------------------------------------------------------------
 
-    def _dispatch(self, frames, start, W, lm, lm_ids, lm_gen, carry, scal):
+    def _dispatch(self, frames, start, W, lm, lm_ids, lm_gen, carry, scal,
+                  t0: float = 0.0):
         t = self.tracker
         Ns = self.system.s.feature_slots
         batch = frames[start:start + W]
@@ -284,25 +294,28 @@ class WindowedRunner:
         while len(padded) < W:  # pad to the window width (whole rows)
             padded = padded + [padded[-1]]
         cuda = self.device.type == "cuda"
+        # the pinned sources stay referenced by the in-flight item until its
+        # results are fetched, i.e. after the uploads have completed; on the
+        # card the window program copies them straight into its inputs
         staging = torch.empty((W, frame_buffer_width(Ns)),
                               dtype=torch.float32, pin_memory=cuda)
-        pack_frames_np(padded, Ns, out=staging.numpy())
-        # the pinned source stays referenced by the in-flight item until
-        # its results are fetched, i.e. after the upload has completed
-        buf = staging.to(self.device, non_blocking=True)
-        self.n_device_calls += 1
-        med = self._med_override
+        pack_frames_np(padded, Ns, out=staging.numpy(), t0=t0)
+        n_valid = torch.full((), actual, dtype=torch.int32, pin_memory=cuda)
+        med = torch.full((), self._med_override, dtype=torch.float32,
+                         pin_memory=cuda)
         self._med_override = -1.0
+        self.n_device_calls += 1      # one window program call (a replay)
         outs, assign, vis, fnd, carry_out = window_track(
-            lm, buf, carry[0], carry[1], carry[2], carry[3],
+            lm, staging, carry[0], carry[1], carry[2], carry[3],
             t.cam, t.bf, t.bounds, t.scales, t.log_sf,
             t.coarse_radius, t.fine_th,
-            n_valid_frames=actual, med_override=med,
+            n_valid_frames=n_valid, med_override=med,
             n_slots=Ns, two_stage=self.two_stage, use_imu=use_imu, **scal,
         )
         item = _InFlight(start=start, batch=batch,
                          results=(outs, assign, vis, fnd),
-                         lm_ids=lm_ids, lm_gen=lm_gen, staging=staging)
+                         lm_ids=lm_ids, lm_gen=lm_gen,
+                         staging=(staging, n_valid, med))
         return item, carry_out
 
     def _run_chain(self, frames, i, lm, lm_ids, lm_gen) -> int:
@@ -322,11 +335,12 @@ class WindowedRunner:
             th_depth=torch.tensor(float(t.s.th_depth), dtype=torch.float32,
                                   device=dev),
         )
+        # frame times of this chain are packed relative to t0
+        t0 = time_origin(frames[i].timestamp)
         carry = (
-            torch.as_tensor(t.last_frame.pose_cw, dtype=torch.float32,
-                            device=dev),
-            torch.as_tensor(t.velocity, dtype=torch.float32, device=dev),
-            torch.from_numpy(self._initial_dec_state()).to(dev),
+            upload(np.asarray(t.last_frame.pose_cw, np.float32), dev),
+            upload(np.asarray(t.velocity, np.float32), dev),
+            upload(self._initial_dec_state(t0), dev),
             torch.zeros((), dtype=torch.bool, device=dev),
         )
         self._med_override = -1.0  # a fresh dec_state already carries med
@@ -343,7 +357,7 @@ class WindowedRunner:
             while (not stop_dispatch and next_i < n
                    and len(inflight) < self.depth):
                 item, carry = self._dispatch(
-                    frames, next_i, W, lm, lm_ids, lm_gen, carry, scal)
+                    frames, next_i, W, lm, lm_ids, lm_gen, carry, scal, t0)
                 next_i += len(item.batch)
                 inflight.append(item)
 

@@ -44,6 +44,13 @@ The multi-device path: the sharded BA step (float64) on four shards of one
 card without a host sync, bit-identical on a rerun, within 1e-9 of four
 CPU shards, and the sharded matcher exact; one shard a card where the
 machine has two or more (skipped below two).
+
+The graph layer (``utils/graphs.py``): the four compiled programs (the
+tracking window, the coarse and fine tracking steps, the local-BA solve)
+replay bit for bit what their eager run computes, and a rerun replays the
+same bits; ``LAUNCHES`` counts a replay's pose launches; a worker thread
+captures while the main thread replays; a failed capture raises and never
+reruns the eager version.
 """
 
 import numpy as np
@@ -53,6 +60,7 @@ import torch
 from snakeslam_tpu_torch.ops import orb as ORB
 from snakeslam_tpu_torch.ops import orb_kernels as OK
 from snakeslam_tpu_torch.ops import pose_fused as PF
+from snakeslam_tpu_torch.utils import graphs
 from snakeslam_tpu_torch.utils.pose_problems import EDGE_CASES, pose_problem
 
 pytestmark = pytest.mark.cuda
@@ -598,7 +606,9 @@ def test_pose_kernel_on_the_mono_vi_lanes_problems(cuda_device):
             captured[(k["outer_iters"], k["inner_iters"])] = (a, k)
         return inner(*a, **k)
 
-    with pytest.MonkeyPatch.context() as mp:
+    # eagerly: a replay of the window's graph runs no Python, so the
+    # problems are read from the eager run (the graph replays its bits)
+    with pytest.MonkeyPatch.context() as mp, graphs.disabled():
         mp.setattr(WS, "pose_refine_fused", capture)
         launches = PF.LAUNCHES
         runner = WindowedRunner(system, window=VP.SMALL_WINDOW)
@@ -867,3 +877,196 @@ def test_sharded_ba_step_on_distinct_cards(cuda_device):
     for a, r in zip(out, ref):
         np.testing.assert_allclose(a.cpu().numpy(), r.numpy(), rtol=0,
                                    atol=1e-9 * max(1.0, r.abs().max().item()))
+
+
+# ---------------------------------------------------------------------------
+# the graph layer
+# ---------------------------------------------------------------------------
+
+GRAPH_W = 8
+
+
+def _window_program_inputs(device):
+    """A stereo map initialized on ``device`` and the window program's
+    arguments for the next ``GRAPH_W`` frames (the last one tail padding,
+    a refreshed median depth)."""
+    from snakeslam_tpu_torch.frontend.synthetic_source import (
+        apply_world_to_settings, synthetic_frames)
+    from snakeslam_tpu_torch.models import window_step as WS
+    from snakeslam_tpu_torch.system.settings import InputType, Settings
+    from snakeslam_tpu_torch.system.slam import SlamSystem
+    from snakeslam_tpu_torch.tracking.windowed import WindowedRunner
+    from snakeslam_tpu_torch.utils.synthetic import (SyntheticWorld,
+                                                     orbit_trajectory)
+
+    world = SyntheticWorld(n_points=1500, seed=7)
+    s = Settings()
+    s.input_type = InputType.Stereo
+    s.enable_imu = False
+    s.feature_slots = 512
+    s.local_map_slots = 1024
+    s.pin_local_map_bucket = True
+    s.th_depth = 25.0
+    apply_world_to_settings(world, s)
+    system = SlamSystem(s, device)
+    frames = list(synthetic_frames(
+        world, orbit_trajectory(GRAPH_W + 1, radius=7.0, arc=0.04,
+                                fps=200.0), s))
+    for f in frames:
+        f.timestamp = f.frame_id / 5.0
+    system.process_frame(frames[0])
+    runner = WindowedRunner(system, window=GRAPH_W)
+    lm, _, _ = runner._local_map()
+    t = system.tracker
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    dec = runner._initial_dec_state()
+    args = (lm, f32(WS.pack_frames_np(frames[1:], 512)),
+            f32(t.last_frame.pose_cw), f32(t.velocity), f32(dec),
+            torch.zeros((), dtype=torch.bool, device=device), t.cam, t.bf,
+            t.bounds, t.scales, t.log_sf, t.coarse_radius, t.fine_th)
+    kw = dict(kfi_target=f32(s.kfi_target_matches),
+              is_stereo=torch.tensor(True, device=device),
+              th_depth=f32(s.th_depth),
+              n_valid_frames=torch.tensor(GRAPH_W - 1, dtype=torch.int32,
+                                          device=device),
+              med_override=f32(1.5 * dec[8]), n_slots=512, two_stage=True)
+    return WS.window_track, args, kw
+
+
+def _program_inputs(name, device):
+    from snakeslam_tpu_torch.entry import entry
+    from snakeslam_tpu_torch.models import tracking_step as TS
+    from snakeslam_tpu_torch.optim import lba as LBA
+    from snakeslam_tpu_torch.utils.backend_problems import ba_problem
+
+    if name == "window_track":
+        return _window_program_inputs(device)
+    _, args = entry(device)
+    if name == "fine_step":
+        return TS.fine_step, args, {}
+    if name == "coarse_step":
+        lm, frame, eye, _, _, cam, bf, bounds, scales, log_sf, th, _, w, _ = \
+            args
+        return (TS.coarse_step,
+                (lm, frame, eye, cam, bf, bounds, scales, log_sf, th, w, w),
+                dict(use_rotation_hist=True))
+    prob, cam, bf = ba_problem(32, 1024, 8, 0, device)
+    return LBA.solve_window, (prob, cam, bf), dict(iterations=3)
+
+
+def _host(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree.cpu().numpy()]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    return [a for v in tree for a in _host(v)]
+
+
+def _same_bits(a, b):
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and x.tobytes() == y.tobytes() for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("name", ["window_track", "coarse_step",
+                                  "fine_step", "lba_solve"])
+def test_graph_replays_equal_the_eager_run(cuda_device, name):
+    prog, args, kw = _program_inputs(name, cuda_device)
+    prog.clear()
+    c0, r0 = prog.captures, prog.replays
+    first = _host(prog(*args, **kw))          # eager warm-up, then capture
+    replay = _host(prog(*args, **kw))
+    rerun = _host(prog(*args, **kw))
+    with graphs.disabled():
+        eager = _host(prog(*args, **kw))
+    assert (prog.captures - c0, prog.replays - r0) == (1, 2)
+    assert _same_bits(first, eager)
+    assert _same_bits(replay, eager)
+    assert _same_bits(rerun, replay)
+    stats = graphs.stats()[prog.name]
+    assert stats["entries"] == 1 and stats["pool_mib"] > 0
+
+
+def test_launch_counts_read_replays(cuda_device):
+    prog, args, kw = _window_program_inputs(cuda_device)
+    prog.clear()
+    for _ in range(3):     # the capture's eager warm-up, then two replays
+        n0 = PF.LAUNCHES
+        prog(*args, **kw)
+        assert PF.LAUNCHES - n0 == 2 * GRAPH_W
+    entry, = prog.entries()
+    assert entry.replays == 2
+    assert list(entry.tally.values()) == [2 * GRAPH_W]
+
+
+def test_worker_captures_while_the_main_thread_replays(cuda_device):
+    import threading
+
+    win, wargs, wkw = _window_program_inputs(cuda_device)
+    lba, largs, lkw = _program_inputs("lba_solve", cuda_device)
+    win.clear()
+    lba.clear()
+    win(*wargs, **wkw)                     # the main thread's capture
+    with graphs.disabled():
+        w_eager = _host(win(*wargs, **wkw))
+        l_eager = _host(lba(*largs, **lkw))
+    go, done, out = threading.Event(), threading.Event(), {}
+
+    def worker():
+        try:
+            go.wait(timeout=60)
+            out["first"] = _host(lba(*largs, **lkw))     # capture here
+            out["replay"] = _host(lba(*largs, **lkw))
+            out["thread"] = threading.get_ident()
+        finally:
+            done.set()
+
+    t = threading.Thread(target=worker)
+    t.start()
+    go.set()
+    replays = []
+    while not done.is_set() or len(replays) < 3:
+        replays.append(_host(win(*wargs, **wkw)))
+    t.join(timeout=60)
+    assert not t.is_alive()
+    assert all(_same_bits(r, w_eager) for r in replays)
+    assert _same_bits(out["first"], l_eager)
+    assert _same_bits(out["replay"], l_eager)
+    entry, = lba.entries()
+    assert entry.thread == out["thread"] != threading.get_ident()
+    assert entry.replays == 1
+
+
+def test_failed_capture_raises_without_an_eager_rerun(cuda_device):
+    """A program with a host sync cannot be captured: the call raises
+    GraphError naming it, and the eager version runs only as the warm-up
+    (in a process of its own: a failed capture is left behind in it)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = """
+import torch
+from snakeslam_tpu_torch.utils import graphs
+calls = []
+def synced(x):
+    calls.append(1)
+    return x * float(x.sum())     # a host sync: not capturable
+prog = graphs.compiled(synced, name="synced")
+x = torch.ones(4, device="cuda")
+for attempt in (1, 2):
+    try:
+        prog(x)
+    except graphs.GraphError as e:
+        assert "synced" in str(e) and "capture failed" in str(e), e
+    else:
+        raise SystemExit("no GraphError")
+    # the warm-up and the capture attempt; nothing reran the eager version
+    assert len(calls) == 2 * attempt, calls
+    assert not prog.entries()
+print("raised")
+"""
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       cwd=Path(__file__).resolve().parent.parent)
+    assert p.returncode == 0 and "raised" in p.stdout, p.stderr[-3000:]

@@ -105,3 +105,55 @@ def test_window_track_parity():
                                atol=1e-4)
     np.testing.assert_allclose(t_out[4][2].numpy(), np.asarray(j_out[4][2]),
                                rtol=1e-5, atol=1e-4)
+
+
+def test_window_track_parity_tensor_padding_and_median_override():
+    """The JAX signature's tensor inputs: ``n_valid_frames < W`` (the last
+    row is tail padding: inactive, no keyframe, the carry passes through
+    it) and a refreshed median depth ``med_override > 0``, both 0-d tensors
+    on the port's side; the same tolerances as the parity test above."""
+    system, lm, buf, carry = _jax_window_inputs()
+    t = system.tracker
+    s = system.s
+    n_valid, med = W - 1, 2.0 * float(carry[2][8])
+    j_out = jws.window_track(
+        lm, jnp.asarray(buf), *(jnp.asarray(c) for c in carry),
+        t.cam, t.bf, t.bounds, t.scales, t.log_sf, t.coarse_radius,
+        t.fine_th, kfi_target=jnp.float32(s.kfi_target_matches),
+        is_stereo=jnp.asarray(True), th_depth=jnp.float32(s.th_depth),
+        n_valid_frames=jnp.int32(n_valid), med_override=jnp.float32(med),
+        n_slots=N_SLOTS, two_stage=True)
+    j_outs, j_assign, j_vis, j_fnd = (np.asarray(a) for a in j_out[:4])
+
+    dev = "cpu"
+    f32 = lambda v: torch.tensor(float(v), dtype=torch.float32)
+    t_out = tws.window_track(
+        local_map_from_numpy(type(lm)(*(np.asarray(a) for a in lm)), dev),
+        torch.from_numpy(buf), *window_carry_from_numpy(carry, dev),
+        pinhole_from_numpy(tuple(np.asarray(c) for c in t.cam), dev),
+        f32(s.bf), torch.tensor(np.asarray(t.bounds, np.float32)),
+        torch.tensor(np.asarray(t.scales, np.float32)),
+        f32(t.log_sf), f32(t.coarse_radius), f32(t.fine_th),
+        kfi_target=f32(s.kfi_target_matches),
+        is_stereo=torch.tensor(True), th_depth=f32(s.th_depth),
+        n_valid_frames=torch.tensor(n_valid, dtype=torch.int32),
+        med_override=f32(med), n_slots=N_SLOTS)
+    t_outs, t_assign, t_vis, t_fnd = (a.numpy() for a in t_out[:4])
+
+    assert (j_outs[:n_valid, 17] > 0.5).all()
+    np.testing.assert_allclose(t_outs[:, :16], j_outs[:, :16], atol=1e-4)
+    for k in range(W):
+        nj, nt = int(j_outs[k, 16]), int(t_outs[k, 16])
+        assert abs(nj - nt) <= max(2, nj // 100), (k, nj, nt)
+    assert np.array_equal(t_outs[:, 17:20], j_outs[:, 17:20])
+    assert t_outs[n_valid, 18] == 0 and (t_assign[n_valid] == -1).all()
+    assert (t_assign == j_assign).mean() >= 0.99
+    assert np.abs(t_vis - j_vis).sum() <= 0.01 * j_vis.sum()
+    assert np.abs(t_fnd - j_fnd).sum() <= 0.01 * j_fnd.sum()
+    # the override reached the carry: a virtual-keyframe reset keeps the
+    # median depth, so the slot holds it after the window
+    t_dec, j_dec = t_out[4][2].numpy(), np.asarray(j_out[4][2])
+    np.testing.assert_allclose(t_dec, j_dec, rtol=1e-5, atol=1e-4)
+    assert t_dec[8] == j_dec[8] == np.float32(med)
+    np.testing.assert_allclose(t_out[4][0].numpy(), np.asarray(j_out[4][0]),
+                               atol=1e-4)
