@@ -130,25 +130,39 @@ exits non-zero:
      and on (features with depth per frame);
  29. TSDF: the lane's first 30 depth frames fused at V = 128 and 256 on
      the card and the CPU, compared and timed;
- 30. graphs: the four compiled programs (utils/graphs.py) on the inputs
-     the lanes gave them (the smooth lane's window and local BA, the CLI
-     lane's coarse and fine tracking steps): a replay of the captured CUDA
-     graph against the eager run inside ``graphs.disabled()``, bit for bit,
-     and against a rerun; the device time of a replay (CUDA events around
-     it) beside the wall time of an eager call and of a compiled call;
-     captures, replays, cache entries and pool MiB of every program.
+ 30. graphs: the compiled programs (utils/graphs.py) on the inputs the
+     lanes gave them (the smooth lane's window, local BA, triangulation
+     pool and forward and backward fusion searches; the pixels lane's
+     stereo front-end and ORB batch on one of its chunks; the loop lane's
+     SearchAndFuse search, point BA and PGO; the mono-VI lane's chain
+     solve, full BA and outlier classification in ``finalize``; the CLI
+     lane's ORB and coarse and fine tracking steps): a replay of the
+     captured CUDA graph against the eager run inside
+     ``graphs.disabled()``, bit for bit, and against a rerun; the device
+     time of a replay (CUDA events around it) beside the wall time of an
+     eager call and of a compiled call; captures, replays, cache entries,
+     evictions and pool MiB of every program; gated on the allocator's
+     reserved GiB and the graph pools' GiB (``RESERVED_GIB_MAX``,
+     ``GRAPH_POOL_GIB_MAX``) with every lane's graphs still held.
 
 The lanes run their compiled programs as graphs (on by default on the
-card): each lane's phase line holds its captures and replays (``graphs``),
-and the smooth, pixels, loop, mono-VI and CLI lanes are gated on one
-replay per call (or one capture for a key met first); the async CLI run
-on a local-BA graph captured on a worker thread while the main thread
-replayed the tracking steps.
+card): each lane's phase line holds its captures and replays (``graphs``)
+and the host seconds of each program's calls (``program_host_s``), and
+every lane is gated on one replay per call (or one capture for a key met
+first) of each program it calls: the window and the local BA; the
+triangulation pool and the fusion searches (smooth and loop lanes); the
+stereo front-end (pixels lane, with the FAST kernel's launches read from
+its replays); ORB (CLI lanes); SearchAndFuse, the global-BA passes and
+PGO (loop lanes; the sharded lane's full BAs are the sharded step's);
+the chain solve and the global-BA passes (mono-VI lane).  The async CLI
+run is gated on a local-BA graph captured on a worker thread and on one
+ORB graph captured and replayed on the producer thread, while the main
+thread replayed the tracking steps.
 
 ``--only a,b`` runs the build and then only the named phases of 13-30
 (``loop``: 13-15; ``multichip``: 13 and 16-19; ``mono_vi``,
-``vi_solvers``, ``mono_vi_cpu_gpu``, ``cli``; ``graphs``: 7, 24, 25 and
-30) and prints no result line: for iterating on one lane.
+``vi_solvers``, ``mono_vi_cpu_gpu``, ``cli``; ``graphs``: 4, 7, 8, 13,
+20, 24, 25 and 30) and prints no result line: for iterating on one lane.
 
 The line before the last is one JSON object with the kernels' names,
 routes, launch counts, errors, times (``ms`` per call, ``device_ms`` per
@@ -165,6 +179,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import importlib
 import io
 import json
 import os
@@ -183,6 +198,8 @@ import torch
 from snakeslam_tpu_torch.core.camera import Pinhole
 from snakeslam_tpu_torch.core.trajectory import read_tum
 from snakeslam_tpu_torch.entry import dryrun_multichip, entry
+from snakeslam_tpu_torch.frontend import feature_detector as FD
+from snakeslam_tpu_torch.frontend import pixels as PIX
 from snakeslam_tpu_torch.frontend.datasets import TumRgbdDataset
 from snakeslam_tpu_torch.frontend.depth_processor import (DepthProcessor,
                                                           process_depth)
@@ -198,6 +215,8 @@ from snakeslam_tpu_torch.frontend.synthetic_source import (
 from snakeslam_tpu_torch.imu import state_solver as VIS
 from snakeslam_tpu_torch.loop import loop_closing as LC
 from snakeslam_tpu_torch.loop.keyframe_database import KeyframeDatabase
+from snakeslam_tpu_torch.map import device_mirror as DM
+from snakeslam_tpu_torch.map import kf_pool as KFP
 from snakeslam_tpu_torch.map import serialization as SER
 from snakeslam_tpu_torch.map.serialization import load_map, save_map
 from snakeslam_tpu_torch.mapping import fusion as FUS
@@ -206,6 +225,7 @@ from snakeslam_tpu_torch.models import tracking_step as TS
 from snakeslam_tpu_torch.models import window_step as WS
 from snakeslam_tpu_torch.ops import ba as BA
 from snakeslam_tpu_torch.ops import imu as IMU
+from snakeslam_tpu_torch.ops import matching as MATCH
 from snakeslam_tpu_torch.ops import orb as ORB
 from snakeslam_tpu_torch.ops import orb_kernels as OK
 from snakeslam_tpu_torch.ops import pgo as PGO
@@ -227,6 +247,7 @@ from snakeslam_tpu_torch.tracking.staging import HostCopy
 from snakeslam_tpu_torch.tracking import windowed as WIN
 from snakeslam_tpu_torch.tracking.windowed import WindowedRunner
 from snakeslam_tpu_torch.utils import cuda_build, graphs
+from snakeslam_tpu_torch.utils import graph_cases as GC
 from snakeslam_tpu_torch.utils import loop_problems as LP
 from snakeslam_tpu_torch.utils import tum_fixture as TF
 from snakeslam_tpu_torch.utils import vi_problems as VP
@@ -335,6 +356,11 @@ DEPTH_RTOL = 1e-5         # the depth filter on the card against the CPU
 TSDF_FRAMES = 30
 TSDF_TRUNC = 0.15         # m: three voxels at V = 128 over 6 m
 TSDF_ATOL = 1e-5          # TSDF on the card against the CPU
+# the allocator's reserved GiB and the graph pools' GiB after every lane
+# and the graphs phase: growth with each key met (a pool a graph, kept for
+# good) fails here
+RESERVED_GIB_MAX = 16.0
+GRAPH_POOL_GIB_MAX = 10.0
 
 
 def phase(name: str, **fields):
@@ -351,6 +377,19 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
+
+
+def memory() -> dict:
+    """The caching allocator's reserved GiB now and at its peak, the GiB
+    the compiled programs' graph pools hold, and the allocator's retries
+    so far (a retry frees every cached block, graph pools released by
+    dropped graphs included: a synchronizing stall)."""
+    st = torch.cuda.memory_stats()
+    return dict(reserved_gib=st.get("reserved_bytes.all.current", 0) / 2**30,
+                peak_reserved_gib=st.get("reserved_bytes.all.peak", 0) / 2**30,
+                graph_pool_gib=sum(v["pool_mib"] for v in
+                                   graphs.stats().values()) / 2**10,
+                alloc_retries=st.get("num_alloc_retries", 0))
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -739,13 +778,17 @@ def pixels_phase(dev, lane) -> dict:
 
     system, seq, runner = pixels_run(lane, dev)
     g0 = graph_counts()
-    OK.FAST_LAUNCHES = 0
-    PF.LAUNCHES = 0
-    t0 = time.perf_counter()
-    runner.run(seq)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    fast, pose = OK.FAST_LAUNCHES, PF.LAUNCHES
+    with contextlib.ExitStack() as stack:
+        keep = stack.enter_context(KeepInputs(PIX, "stereo_frontend_batch",
+                                              dev))
+        probes = program_probes(stack, ("stereo_frontend",))
+        OK.FAST_LAUNCHES = 0
+        PF.LAUNCHES = 0
+        t0 = time.perf_counter()
+        runner.run(seq)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fast, pose = OK.FAST_LAUNCHES, PF.LAUNCHES
     g = graph_delta(g0)
     tracked = len(system.tracker.trajectory)
     ate, _, _ = system.ate_against_gt(with_scale=False)
@@ -756,9 +799,14 @@ def pixels_phase(dev, lane) -> dict:
           ate_m=ate, wall_s=wall, fps=tracked / wall,
           image="752x480 uint8 stereo pairs, 1000 features",
           fast_launches=fast, pose_launches=pose,
-          device_calls=runner.n_device_calls, graphs=g, jax_cpu=JAX_PIXELS,
-          card=card_line())
+          device_calls=runner.n_device_calls, graphs=g,
+          program_host_s=program_host_s(probes), memory=memory(),
+          jax_cpu=JAX_PIXELS, card=card_line())
     check_one_replay_per_call(g, dict(window_track=runner.n_device_calls))
+    check_programs("pixels_lane", g, probes, required=("stereo_frontend",))
+    check(probes["stereo_frontend"].calls == chunks,
+          f"{probes['stereo_frontend'].calls} front-end calls for {chunks} "
+          "chunks")
     check(fast == levels * chunks,
           f"{fast} FAST launches for {chunks} chunks of {levels} levels")
     check(pose == 2 * runner.window * runner.n_device_calls,
@@ -770,7 +818,15 @@ def pixels_phase(dev, lane) -> dict:
           f"{JAX_PIXELS['keyframes']}")
     check(abs(ate - JAX_PIXELS["ate_m"]) <= 0.2 * JAX_PIXELS["ate_m"],
           f"pixels lane ATE {ate} m, the JAX run {JAX_PIXELS['ate_m']} m")
-    return dict(fast=fast, pose=pose)
+    # the ORB batch program on a chunk's views, stacked as the front-end
+    # stacks them (no lane calls it on its own)
+    prog, (a, k) = keep.kept()
+    orb_batch = (ORB.extract_orb_batch, (
+        (torch.cat([a[0], a[1]]).to(torch.float32),),
+        {n: k[n] for n in ("n_features", "levels", "scale_factor",
+                           "threshold")}))
+    return dict(fast=fast, pose=pose, kept=dict(stereo_frontend=(prog, (a, k)),
+                                                orb_batch=orb_batch))
 
 
 def _features(outs, b):
@@ -871,8 +927,19 @@ def slice_phase(dev):
     system, frames = smooth_lane(7, 400, dev)
     runner = WindowedRunner(system, window=128)
     g0 = graph_counts()
-    with KeepInputs(WIN, "window_track", dev) as win, \
-            KeepInputs(LBA, "solve_window", dev) as lba:
+    backend = ("triangulate_pool", "fuse_pool")
+    with contextlib.ExitStack() as stack:
+        win = stack.enter_context(KeepInputs(WIN, "window_track", dev))
+        lba = stack.enter_context(KeepInputs(LBA, "solve_window", dev))
+        # the pool search into the neighbours' 16 rows, and into the
+        # keyframe's own row: one program, two keys (installed in turn)
+        keep = {"triangulate_pool": stack.enter_context(KeepInputs(
+            *PROGRAM_SITES["triangulate_pool"], dev, nth=1))}
+        for n, rows in (("fuse_pool", FUS.FUSE_NB), ("fuse_pool_row", 1)):
+            keep[n] = stack.enter_context(KeepInputs(
+                *PROGRAM_SITES["fuse_pool"], dev,
+                when=lambda a, k, rows=rows: len(a[1]) == rows))
+        probes = program_probes(stack, backend)
         PF.LAUNCHES = 0
         t0 = time.perf_counter()
         runner.run(frames)
@@ -889,6 +956,7 @@ def slice_phase(dev):
           device_calls=runner.n_device_calls, graphs=g,
           window_replays_per_call=g.get("window_track", {}).get(
               "replays", 0) / runner.n_device_calls,
+          program_host_s=program_host_s(probes), memory=memory(),
           **counts, jax_cpu=JAX_SMOOTH, card=card_line())
     check(tracked == JAX_SMOOTH["tracked"], f"tracked {tracked} of 400 frames")
     check(abs(system.map.n_keyframes - JAX_SMOOTH["keyframes"]) <= 1,
@@ -909,8 +977,10 @@ def slice_phase(dev):
                                       lba_solve=lba.calls))
     check(win.calls == runner.n_device_calls,
           f"{win.calls} window calls for {runner.n_device_calls} windows")
+    check_programs("slice", g, probes, required=backend)
     return launches, system, dict(window_track=win.kept(),
-                                  lba_solve=lba.kept())
+                                  lba_solve=lba.kept(),
+                                  **{n: k.kept() for n, k in keep.items()})
 
 
 def kf_cycle_phase(system, reps: int = 3):
@@ -1132,32 +1202,81 @@ def check_one_replay_per_call(delta: dict, calls: dict):
               f"{name}: {d} for {n} calls")
 
 
+# where the lanes call the compiled programs of the keyframe back-end, the
+# front-ends, the IMU solver, loop closing and finalize: (module, name)
+PROGRAM_SITES = {name: (importlib.import_module(module), attr)
+                 for name, (module, attr) in GC.SITES.items()}
+
+
+# where the lanes call the device functions the JAX package jits and the
+# port runs eagerly (ROADMAP.md queue D)
+EAGER_SITES = {
+    "sim3_ransac": (LC, "sim3_ransac"),
+    "_gather_points": (DM, "_gather_points"),
+    "KFFeaturePool._upload": (KFP.KFFeaturePool, "_upload"),
+    "solve_scale_gravity": (IMU, "solve_scale_gravity"),
+    "knn2_ratio_match": (MATCH, "knn2_ratio_match"),
+    "GlobalBA.rematch_intermediate": (GBA.GlobalBA, "rematch_intermediate"),
+}
+
+
+def program_probes(stack, names, sites=PROGRAM_SITES) -> dict:
+    """A Probe (calls, host seconds) on the call site of each named
+    program (``sites``: name -> (owner, attribute)), entered on
+    ``stack``."""
+    return {n: stack.enter_context(Probe(*sites[n])) for n in names}
+
+
+def program_host_s(probes: dict) -> dict:
+    """{program: [host seconds, calls]} of ``program_probes``' probes."""
+    return {n: [p.seconds, p.calls] for n, p in probes.items()}
+
+
+def check_programs(lane: str, delta: dict, probes: dict, required=()):
+    """Every program in ``required`` ran in the lane, and each probed
+    program ran one replay a call, or one capture for a key met first
+    (``delta``: ``graph_delta`` over the same interval)."""
+    for n in required:
+        check(probes[n].calls > 0, f"{lane}: {n} was never called")
+    check_one_replay_per_call(delta, {n: p.calls for n, p in probes.items()
+                                      if p.calls})
+
+
 class KeepInputs:
     """While installed in place of the compiled program ``owner.name``,
     keeps a copy on the card of the arguments of its ``nth`` call (with
-    ``armed``: of its first call while ``armed()`` is true), taken before
-    the call: a program's static outputs passed back in, such as the
-    window's carry, are overwritten by later replays."""
+    ``armed``: of its first call while ``armed()`` is true; with ``when``:
+    of its first call whose arguments ``when(args, kwargs)`` accepts),
+    taken before the call: a program's static outputs passed back in,
+    such as the window's carry, are overwritten by later replays.  Two
+    may be installed on one site; each keeps the program itself."""
 
-    def __init__(self, owner, name, dev, nth: int = 2, armed=None):
+    def __init__(self, owner, name, dev, nth: int = 2, armed=None,
+                 when=None):
         self.owner, self.name, self.dev, self.nth = owner, name, dev, nth
-        self.armed = armed
-        self.prog = getattr(owner, name)
+        self.armed, self.when = armed, when
+        self.inner = getattr(owner, name)
+        self.prog = getattr(self.inner, "program", self.inner)
         self.calls = 0
         self.args = None
+
+    def _wanted(self, a, k) -> bool:
+        if self.when:
+            return self.when(a, k)
+        return self.armed() if self.armed else self.calls == self.nth
 
     def __enter__(self):
         def wrapped(*a, **k):
             self.calls += 1
-            if self.args is None and (self.armed() if self.armed
-                                      else self.calls == self.nth):
+            if self.args is None and self._wanted(a, k):
                 self.args = (_to_card(a, self.dev), _to_card(k, self.dev))
-            return self.prog(*a, **k)
+            return self.inner(*a, **k)
+        wrapped.program = self.prog
         setattr(self.owner, self.name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        setattr(self.owner, self.name, self.prog)
+        setattr(self.owner, self.name, self.inner)
 
     def kept(self):
         check(self.args is not None,
@@ -1204,9 +1323,18 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
              Probe(LM.LocalMapper, "commit_deferred"),
              Probe(LC.LoopClosing, "process"),
              Probe(LM.LocalMapper, "process_sync")]
+    loop_programs = ("triangulate_pool", "fuse_pool", "fuse_search_single",
+                     "gba_full_ba", "gba_point_ba", "gba_outliers", "pgo")
+    gba_programs = ("gba_full_ba", "gba_point_ba", "gba_outliers")
     with contextlib.ExitStack() as stack:
+        keep = {n: stack.enter_context(KeepInputs(*PROGRAM_SITES[n], dev,
+                                                  nth=1))
+                for n in ("fuse_search_single", "gba_point_ba", "pgo")}
         for t in timed:
             stack.enter_context(t)
+        probes = program_probes(stack, loop_programs)
+        eager = program_probes(stack, ("sim3_ransac", "_gather_points",
+                                       "KFFeaturePool._upload"), EAGER_SITES)
         verify = stack.enter_context(Probe(LC, "_verify_search_refine"))
         verify_kernel = stack.enter_context(Probe(LC, "pose_refine_fused"))
         full = stack.enter_context(Probe(GBA.GlobalBA, "full_ba"))
@@ -1229,17 +1357,32 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
     # the lane's whole-map BA problem before finalize, for the multichip
     # phase (float64, buckets C 128, P 8192, M 16)
     problem = lc.gba.pack_full()[0] if n_devices > 1 else None
-    with Probe(GBA.GlobalBA, "realign_intermediate_frames",
-                   keep=True) as realign, \
-            Probe(GBA, "pose_refine_fused") as realign_kernel, \
-            Probe(GBA.GlobalBA, "full_ba") as full_fin, \
-            Probe(GBA.GlobalBA, "_sharded_full_ba") as sharded_fin:
+    with contextlib.ExitStack() as stack:
+        realign = stack.enter_context(Probe(
+            GBA.GlobalBA, "realign_intermediate_frames", keep=True))
+        realign_kernel = stack.enter_context(Probe(GBA, "pose_refine_fused"))
+        full_fin = stack.enter_context(Probe(GBA.GlobalBA, "full_ba"))
+        sharded_fin = stack.enter_context(
+            Probe(GBA.GlobalBA, "_sharded_full_ba"))
+        probes_fin = program_probes(stack, gba_programs)
+        rematch = program_probes(stack, ("GlobalBA.rematch_intermediate",),
+                                 EAGER_SITES)
+        g1 = graph_counts()
         n0 = PF.LAUNCHES
         t0 = time.perf_counter()
         system.finalize()
         torch.cuda.synchronize()
         finalize_s = time.perf_counter() - t0
         finalize_launches = PF.LAUNCHES - n0
+    g_fin = graph_delta(g1)
+    eager_host_s = dict(program_host_s(eager),
+                        **program_host_s(rematch),
+                        _verify_search_refine=[verify.seconds, verify.calls],
+                        realign_intermediate_frames=[realign.seconds,
+                                                     realign.calls],
+                        _sharded_full_ba=[
+                            sharded.seconds + sharded_fin.seconds,
+                            sharded.calls + sharded_fin.calls])
     ate_final, _, _ = system.ate_against_gt(with_scale=False)
     kfs_final = system.map.n_keyframes
     tracking = run_launches - verify.launches
@@ -1261,6 +1404,10 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
                                      finalize=sharded_fin.calls),
           full_ba_s=dict(run=full.seconds, finalize=full_fin.seconds),
           backend=backend_counts(system), host_s_and_calls=host_s,
+          program_host_s=program_host_s(probes),
+          finalize_graphs=g_fin,
+          finalize_program_host_s=program_host_s(probes_fin),
+          eager_host_s=eager_host_s, memory=memory(),
           jax_cpu=JAX_LOOP if n_devices == 1 else JAX_LOOP_SHARDED,
           card=card_line())
     J = JAX_LOOP if n_devices == 1 else JAX_LOOP_SHARDED
@@ -1291,9 +1438,21 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
     check(full.calls == len(correct_ms) and full_fin.calls == 3,
           f"{full.calls} full BAs for {len(correct_ms)} loop corrections, "
           f"{full_fin.calls} in finalize")
+    # the keyframe back-end, loop closing and finalize ran their programs
+    # as graphs; with n_devices > 1 every full BA is the sharded step's
+    unsharded_full = ("gba_full_ba",) if n_devices == 1 else ()
+    check_programs(name, g, probes, required=(
+        "triangulate_pool", "fuse_pool", "fuse_search_single",
+        "gba_point_ba", "gba_outliers", "pgo")
+        + unsharded_full)
+    check_programs(f"{name} finalize", g_fin, probes_fin,
+                   required=("gba_outliers",) + unsharded_full)
     if n_devices == 1:
         check(sharded.calls == sharded_fin.calls == 0,
               "the unsharded loop lane ran the sharded step")
+        check(probes["gba_full_ba"].calls == full.calls
+              and probes_fin["gba_full_ba"].calls == full_fin.calls,
+              "a full BA of the unsharded loop lane ran outside its program")
     else:
         check(lc.gba._mesh.size == n_devices,
               f"the loop closer's mesh has {lc.gba._mesh.size} shards")
@@ -1301,6 +1460,8 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
               and sharded_fin.calls == full_fin.calls,
               f"sharded full BAs {sharded.calls} + {sharded_fin.calls} for "
               f"{full.calls} + {full_fin.calls} full BAs")
+        check(probes["gba_full_ba"].calls == probes_fin["gba_full_ba"].calls
+              == 0, "the sharded loop lane ran the unsharded full BA")
         ratio = ate_final / unsharded["ate_final_m"]
         check(1 / LOOP_SHARDED_ATE_FACTOR <= ratio <= LOOP_SHARDED_ATE_FACTOR,
               f"sharded loop lane ATE {ate_final} m after finalize, the "
@@ -1308,7 +1469,8 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
     return dict(launches=run_launches + finalize_launches,
                 realign_args=realign_kernel.args,
                 verify_args=verify_kernel.args, ate_final_m=ate_final,
-                gba=lc.gba, problem=problem)
+                gba=lc.gba, problem=problem,
+                kept={n: k.kept() for n, k in keep.items()})
 
 
 def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1692,12 +1854,18 @@ def mono_vi_lane_phase(dev) -> dict:
              Probe(VIS.ImuStateSolver, "update_map"),
              Probe(VIS.ImuStateSolver, "_stage_gravity_scale"),
              Probe(VIS.ImuStateSolver, "_stage_refine")]
+    vi_programs = ("imu_chain_solve", "gba_full_ba", "gba_point_ba",
+                   "gba_outliers")
     with contextlib.ExitStack() as stack:
         for t in timed:
             stack.enter_context(t)
         # a window's inputs once gravity and scale are in
         kept = stack.enter_context(KeepInputs(
             WIN, "window_track", dev, armed=lambda: sol.gravity_initialized))
+        probes = program_probes(stack, vi_programs)
+        eager = program_probes(stack, ("solve_scale_gravity",
+                                       "knn2_ratio_match", "_gather_points"),
+                               EAGER_SITES)
         landed = watch_landings(system)
         g0 = graph_counts()
         PF.LAUNCHES = 0
@@ -1717,17 +1885,23 @@ def mono_vi_lane_phase(dev) -> dict:
     final_probes = [Probe(VIS.ImuStateSolver, "_solve_chain"),
                     Probe(GBA.GlobalBA, "full_ba")]
     with contextlib.ExitStack() as stack:
+        keep = {n: stack.enter_context(KeepInputs(*PROGRAM_SITES[n], dev,
+                                                  nth=1))
+                for n in ("imu_chain_solve", "gba_full_ba", "gba_outliers")}
         for t in final_probes:
             stack.enter_context(t)
         realign = stack.enter_context(
             Probe(GBA.GlobalBA, "realign_intermediate_frames", keep=True))
         realign_kernel = stack.enter_context(Probe(GBA, "pose_refine_fused"))
+        probes_fin = program_probes(stack, vi_programs)
+        g1 = graph_counts()
         n0 = PF.LAUNCHES
         t0 = time.perf_counter()
         system.finalize()
         torch.cuda.synchronize()
         finalize_s = time.perf_counter() - t0
         finalize_launches = PF.LAUNCHES - n0
+    g_fin = graph_delta(g1)
     after = vi_summary(system)
     tracked = before["tracked"]
     phase("mono_vi_lane", frames=len(frames), window=VP.WINDOW, **before,
@@ -1744,6 +1918,9 @@ def mono_vi_lane_phase(dev) -> dict:
           finalize_host_s_and_calls={
               f"{t.owner.__name__}.{t.name}": [t.seconds, t.calls]
               for t in final_probes},
+          program_host_s=program_host_s(probes), finalize_graphs=g_fin,
+          finalize_program_host_s=program_host_s(probes_fin),
+          eager_host_s=program_host_s(eager), memory=memory(),
           jax_cpu=JAX_MONO_VI)
     J = JAX_MONO_VI
     check(before["vi_initialized"], "the mono-VI lane never initialized its "
@@ -1777,10 +1954,16 @@ def mono_vi_lane_phase(dev) -> dict:
           f"{realign.out}")
     check((1, 3) in window.last and (2, 2) in window.last,
           "no window was tracked after the visual-inertial initialization")
+    # the chain solves and the global-BA passes ran as graphs
+    check_programs("mono_vi_lane", g, probes)
+    check_programs("mono_vi_lane finalize", g_fin, probes_fin,
+                   required=("imu_chain_solve", "gba_full_ba",
+                             "gba_outliers"))
     return dict(launches=run_launches + finalize_launches,
                 coarse_args=window.last[(1, 3)],
                 fine_args=window.last[(2, 2)],
-                realign_args=realign_kernel.args)
+                realign_args=realign_kernel.args,
+                kept={n: k.kept() for n, k in keep.items()})
 
 
 def _wall_ms(fn, sync: bool, n: int = 5) -> float:
@@ -1970,6 +2153,8 @@ def cli_run(ini: Path, data: Path, out: Path, dev) -> dict:
                                             "realign_intermediate_frames"))
         realign_kernel = stack.enter_context(Probe(GBA, "pose_refine_fused"))
         verify = stack.enter_context(Probe(LC, "pose_refine_fused"))
+        probes = program_probes(stack, [n for n in PROGRAM_SITES if n not in (
+            "stereo_frontend", "imu_chain_solve")])
         stack.enter_context(contextlib.redirect_stdout(text))
         g0 = graph_counts()
         OK.FAST_LAUNCHES = 0
@@ -1980,6 +2165,10 @@ def cli_run(ini: Path, data: Path, out: Path, dev) -> dict:
         fast, pose = OK.FAST_LAUNCHES, PF.LAUNCHES
         g = graph_delta(g0)
     check(rc == 0, f"the CLI returned {rc}")
+    check_programs("cli", g, probes, required=("orb",))
+    check(probes["orb"].calls == stages["orb"].calls,
+          f"{probes['orb'].calls} ORB programs for {stages['orb'].calls} "
+          "detections")
     system = stages["finalize"].args[0][0]
     tracked = len(system.tracker.trajectory)
     ate, n = TF.ate_against_groundtruth(out / "trajectory_frames_ba.tum",
@@ -1992,6 +2181,7 @@ def cli_run(ini: Path, data: Path, out: Path, dev) -> dict:
                 points=system.map.n_points, ate_m=ate, ate_matched=n,
                 wall_s=wall, fps=tracked / wall,
                 finalize_s=stages["finalize"].seconds, host_s=host_s,
+                program_host_s=program_host_s(probes),
                 graphs=g, fast=fast, pose=pose, realign_calls=realign.calls,
                 realign_launches=realign.launches,
                 realign_args=realign_kernel.args,
@@ -2024,13 +2214,16 @@ def cli_tum_phase(dev, lane, tmp: Path) -> dict:
     data = lane["root"]
     ini = TF.copy_config(tmp / "tum.ini")
     with KeepInputs(TR, "coarse_step", dev) as coarse, \
-            KeepInputs(TR, "fine_step", dev) as fine:
+            KeepInputs(TR, "fine_step", dev) as fine, \
+            KeepInputs(FD, "extract_orb", dev) as orb:
         r = cli_run(ini, data, tmp / "out", dev)
-    r["kept"] = dict(coarse_step=coarse.kept(), fine_step=fine.kept())
+    r["kept"] = dict(coarse_step=coarse.kept(), fine_step=fine.kept(),
+                     orb=orb.kept())
     J, O = JAX_CLI, JAX_CLI_OWN_ORB
     shown = {k: v for k, v in r.items()
              if k not in ("system", "realign_args", "kept")}
-    phase("cli_tum", frames=CLI_FRAMES, **shown, jax_cpu=J,
+    phase("cli_tum", frames=CLI_FRAMES, **shown,
+          memory=memory(), jax_cpu=J,
           jax_cpu_own_orb=O, ate_ratio=r["ate_m"] / J["ate_m"],
           ate_ratio_own_orb=r["ate_m"] / O["ate_m"])
     for ref, name in ((J, "the JAX run"), (O, "the JAX run, own ORB")):
@@ -2135,8 +2328,9 @@ def fast_cli_phase(dev, lane, settings) -> None:
     levels of one of its frames (B = 1), as ``FeatureDetector.detect``
     hands them over, against the plain version, exact."""
     levels = []
-    with Probe(OK, "fast_score_batch",
-               after=lambda a, k: levels.append((a, k))):
+    # eagerly: a replay of ORB's graph makes no Python call of the wrapper
+    with graphs.disabled(), Probe(OK, "fast_score_batch",
+                                  after=lambda a, k: levels.append((a, k))):
         FeatureDetector(settings, device=dev).detect(
             lane["grays"][CLI_FRAMES // 2], 0, 0.0)
     check(len(levels) == settings.fd_levels,
@@ -2163,20 +2357,32 @@ def cli_tum_async_phase(dev, lane, tmp: Path, sync: dict) -> None:
     ini = TF.copy_config(tmp / "tum_async.ini", async_mode="true",
                    async_lba="true")
     main = threading.get_ident()
-    before = {id(e) for e in LBA.solve_window.entries()}
+    # the entries held here, so that no new entry takes a dropped one's id
+    lba_before = LBA.solve_window.entries()
+    orb_before = ORB.extract_orb.entries()
     r = cli_run(ini, lane["root"], tmp / "out_async", dev)
     # the local BA captured on the worker while the main thread replayed
-    # the tracking steps
+    # the tracking steps; ORB captured and replayed on the producer thread
+    before = {id(e) for e in lba_before + orb_before}
     worker = [e for e in LBA.solve_window.entries()
               if id(e) not in before and e.thread != main]
+    producer = [e for e in ORB.extract_orb.entries()
+                if id(e) not in before and e.thread != main]
     shown = {k: v for k, v in r.items()
              if k not in ("system", "realign_args")}
     phase("cli_tum_async", frames=CLI_FRAMES, **shown,
           lba_graphs_captured_on_workers=len(worker),
           lba_replays_on_workers=sum(e.replays for e in worker),
+          orb_graphs_captured_on_producer=len(producer),
+          orb_replays_on_producer=sum(e.replays for e in producer),
+          memory=memory(),
           sync_wall_s=sync["wall_s"], sync_ate_m=sync["ate_m"])
     check(len(worker) >= 1 and r["graphs"]["lba_solve"]["captures"] >= 1,
           f"no local-BA graph captured on a worker thread: {r['graphs']}")
+    check(len(producer) == 1
+          and producer[0].replays == CLI_FRAMES - 1,
+          f"ORB on the producer thread: {len(producer)} graphs, "
+          f"{[e.replays for e in producer]} replays for {CLI_FRAMES} frames")
     check(all(r["graphs"].get(p, {}).get("replays", 0) > 0
               for p in ("coarse_step", "fine_step")),
           f"the tracking steps did not replay in the async run: "
@@ -2389,11 +2595,17 @@ def graphs_phase(kept: dict) -> dict:
                                     - y.astype(np.float64))))
                 if x.size else 0.0 for x, y in zip(replay, eager)]
     st = graphs.stats()
-    phase("graphs", programs=rows, stats=st, card=card_line())
+    mem = memory()
+    phase("graphs", programs=rows, stats=st, memory=mem, card=card_line())
     for name, r in rows.items():
         check(r["bit_identical"], f"{name}: the graph's replay differs "
               f"from the eager run: {r.get('max_abs_diff')}")
         check(r["rerun_bit_identical"], f"{name}: a rerun differs")
+    # every lane's systems are still alive here, with their graphs
+    check(mem["reserved_gib"] <= RESERVED_GIB_MAX
+          and mem["graph_pool_gib"] <= GRAPH_POOL_GIB_MAX,
+          f"memory after the lanes: {mem}, limits {RESERVED_GIB_MAX} GiB "
+          f"reserved, {GRAPH_POOL_GIB_MAX} GiB in graph pools")
     return rows
 
 
@@ -2431,10 +2643,14 @@ def main() -> int:
             cli_phases(dev)
         if "graphs" in only:
             _, _, kept = slice_phase(dev)
+            pix = pixels_phase(dev, render_pixels_lane())
+            loop = loop_lane_phase(dev)
+            mono_vi = mono_vi_lane_phase(dev)
             with tempfile.TemporaryDirectory() as tmp:
                 tmp = Path(tmp)
                 sync = cli_tum_phase(dev, tum_render_phase(tmp / "tum"), tmp)
-            graphs_phase({**kept, **sync["kept"]})
+            graphs_phase({**kept, **pix["kept"], **loop["kept"],
+                          **mono_vi["kept"], **sync["kept"]})
         print(card_line(), flush=True)
         return 0
     kern = kernel_phase(dev)
@@ -2457,7 +2673,8 @@ def main() -> int:
     vi_solvers_phase(dev)
     mono_vi_cpu_gpu_phase(dev)
     cli = cli_phases(dev)
-    programs = graphs_phase({**kept, **cli["kept"]})
+    programs = graphs_phase({**kept, **pix["kept"], **loop["kept"],
+                             **mono_vi["kept"], **cli["kept"]})
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "pose_refine_fused",

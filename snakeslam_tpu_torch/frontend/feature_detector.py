@@ -6,6 +6,10 @@ ORB extraction (ops/orb.py, in place of ORBExtractor/ORBExtractorGPU,
 FeatureDetector.cpp:28-42,113-125) on ``device``, and the feature disk cache
 ``fd_bufferToFile`` -> ``<dataset>/features/<id>.features``
 (FeatureDetector.cpp:94-139), which makes reruns deterministic and fast.
+On the card each image goes up from pinned memory without blocking and
+through ORB's compiled program (one CUDA graph replay a frame, captured on
+the thread that calls: async mode's producer captures its own); the
+features come back by one copy behind one event.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from snakeslam_tpu_torch.map.slam_map import FrameData
 from snakeslam_tpu_torch.ops.descriptors import pack_bits_np
 from snakeslam_tpu_torch.ops.orb import extract_orb
 from snakeslam_tpu_torch.system.settings import Settings
+from snakeslam_tpu_torch.tracking.staging import HostCopy, upload
 from snakeslam_tpu_torch.utils import native
 
 
@@ -51,14 +56,13 @@ class FeatureDetector:
                     depth=np.full(len(z["uv"]), -1.0),
                 )
         feats = extract_orb(
-            torch.as_tensor(np.asarray(image, dtype=np.float32),
-                            device=self.device),
-            n_features=self.s.fd_features,
-            levels=self.s.fd_levels,
-            scale_factor=self.s.fd_scale_factor,
+            upload(np.asarray(image, dtype=np.float32), self.device),
+            n_features=int(self.s.fd_features),
+            levels=int(self.s.fd_levels),
+            scale_factor=float(self.s.fd_scale_factor),
             threshold=float(self.s.fd_ini_th_fast),
         )
-        feats = [t.cpu().numpy() for t in feats]
+        feats = HostCopy(feats).wait()
         uv_all, _, octave_all, angle_all, bits_all, valid = feats
         uv = uv_all[valid].astype(np.float64)
         octave = octave_all[valid].astype(np.int32)

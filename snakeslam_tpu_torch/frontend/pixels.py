@@ -12,7 +12,10 @@ host memory with non-blocking copies and are cast on the device; results
 come back by non-blocking copies into pinned host tensors followed by a
 recorded CUDA event, which ``materialize`` waits on.  So the host converts
 chunk k while the device works on chunk k+1, and extraction chunks queue
-on the device stream between the tracking windows.
+on the device stream between the tracking windows.  On the card
+``stereo_frontend_batch`` is a compiled program (``utils/graphs.py``), as
+the JAX package jits it whole: one captured CUDA graph a chunk shape, the
+FAST kernel's launches inside it.
 """
 
 from __future__ import annotations
@@ -24,14 +27,16 @@ import torch
 
 from snakeslam_tpu_torch.map.slam_map import FrameData
 from snakeslam_tpu_torch.ops.descriptors import hamming_matrix
-from snakeslam_tpu_torch.ops.orb import OrbFeatures, extract_orb_batch
+from snakeslam_tpu_torch.ops.orb import OrbFeatures, _extract_orb_batch
+from snakeslam_tpu_torch.utils import graphs
 
 
 def _pack_bits_dev(bits: torch.Tensor) -> torch.Tensor:
     """(..., 256) {0,1} -> (..., 32) uint8, bitorder='little' (matches
     ops/descriptors.pack_bits_np / unpack_bits)."""
-    w = torch.tensor([1 << k for k in range(8)], dtype=torch.int32,
-                     device=bits.device)
+    i32, dev = torch.int32, bits.device
+    w = torch.ones(8, dtype=i32, device=dev) << torch.arange(
+        8, dtype=i32, device=dev)
     b = bits.reshape(bits.shape[:-1] + (32, 8)).to(torch.int32)
     return (b * w).sum(dim=-1).to(torch.uint8)
 
@@ -64,25 +69,28 @@ def _stereo_gates(uv_l, oct_l, bits_l, val_l, uv_r, oct_r, bits_r, val_r,
     return right, depth
 
 
-def stereo_frontend_batch(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
-                          bf: float, n_features: int = 1000, levels: int = 4,
-                          scale_factor: float = 1.2, threshold: float = 20.0,
-                          relaxed: bool = False):
+def _stereo_frontend_batch(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
+                           bf: float, n_features: int = 1000,
+                           levels: int = 4, scale_factor: float = 1.2,
+                           threshold: float = 20.0, relaxed: bool = False):
     """(B, H, W) stereo pairs (any real dtype, cast to float32 on their
     device) -> per-frame features + stereo depth.
 
     Returns (uv, octave, angle, packed_desc, valid, right, depth), all with
-    leading B and n_features slots, on the images' device.
+    leading B and n_features slots, on the images' device.  As the
+    compiled ``stereo_frontend_batch`` every argument but the images is
+    static (``bf`` a Python float, fixed by the settings); the outputs are
+    the graph's buffers until its next call.
     """
     B = imgs_l.shape[0]
-    f = extract_orb_batch(
+    f = _extract_orb_batch(
         torch.cat([imgs_l, imgs_r], dim=0).to(torch.float32),
         n_features=n_features, levels=levels, scale_factor=scale_factor,
         threshold=threshold)
     fl = OrbFeatures(*(x[:B] for x in f))
     fr = OrbFeatures(*(x[B:] for x in f))
     row_tol = 2.0 * (2.0 if relaxed else 1.0)
-    bf = torch.tensor(bf, dtype=torch.float32, device=imgs_l.device)
+    bf = torch.full((), bf, dtype=torch.float32, device=imgs_l.device)
     max_disp = torch.where(bf > 0, bf / 0.3,
                            torch.full_like(bf, 200.0))       # z >= 0.3 m
     right, depth = _stereo_gates(fl.uv, fl.octave, fl.desc_bits, fl.valid,
@@ -90,6 +98,13 @@ def stereo_frontend_batch(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
                                  bf, row_tol, max_disp)
     packed = _pack_bits_dev(fl.desc_bits)
     return fl.uv, fl.octave, fl.angle, packed, fl.valid, right, depth
+
+
+stereo_frontend_batch = graphs.compiled(
+    _stereo_frontend_batch,
+    static=("bf", "n_features", "levels", "scale_factor", "threshold",
+            "relaxed"),
+    name="stereo_frontend")
 
 
 @dataclass

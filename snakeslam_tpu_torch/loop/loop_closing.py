@@ -26,7 +26,7 @@ from snakeslam_tpu_torch.core.pyramid import ScalePyramid
 from snakeslam_tpu_torch.loop.keyframe_database import KeyframeDatabase
 from snakeslam_tpu_torch.map.slam_map import SlamMap, transform_pose_cw
 from snakeslam_tpu_torch.ops import matching as M
-from snakeslam_tpu_torch.ops.pgo import PoseGraph, solve_pgo
+from snakeslam_tpu_torch.ops.pgo import PoseGraph, padded, solve_pgo
 from snakeslam_tpu_torch.ops.pose_fused import pose_refine_fused
 from snakeslam_tpu_torch.ops.pose_solver import PoseObs, robust_pose_refine
 from snakeslam_tpu_torch.ops.sim3_solver import sim3_ransac
@@ -362,7 +362,6 @@ class LoopClosing:
         M_loop = T_kf_corr @ np.linalg.inv(smap.kf_pose[cand])
         edges.append((kf_index[cand], kf_index[kf], M_loop, 4.0))
 
-        E = len(edges)
         use_sim3 = self.use_scale
         poses = smap.kf_pose[kfs].copy()
 
@@ -377,22 +376,17 @@ class LoopClosing:
         fixed[kf_index[cand]] = True
         fixed[kf_index[kf]] = True
 
-        # float64 on either device (the H100 runs f64 at full rate)
+        # float64 on either device (the H100 runs f64 at full rate),
+        # padded to power-of-two sizes: the compiled solve's key repeats
         dev = self.device
-        graph = PoseGraph(
-            poses=upload(poses.astype(np.float64), dev),
-            fixed=upload(fixed, dev),
-            valid=torch.ones(V, dtype=torch.bool, device=dev),
-            edge_i=upload(np.array([e[0] for e in edges], np.int64), dev),
-            edge_j=upload(np.array([e[1] for e in edges], np.int64), dev),
-            edge_T=upload(np.stack([e[2] for e in edges]).astype(np.float64),
-                          dev),
-            edge_weight=upload(np.array([e[3] for e in edges], np.float64),
-                               dev),
-            edge_valid=torch.ones(E, dtype=torch.bool, device=dev),
-        )
+        graph = PoseGraph(**{k: upload(a, dev) for k, a in padded(
+            poses.astype(np.float64), fixed,
+            np.array([e[0] for e in edges], np.int64),
+            np.array([e[1] for e in edges], np.int64),
+            np.stack([e[2] for e in edges]).astype(np.float64),
+            np.array([e[3] for e in edges], np.float64)).items()})
         new_poses, _ = solve_pgo(graph, iterations=25, use_sim3=use_sim3)
-        new_poses = HostCopy([new_poses]).wait()[0]
+        new_poses = HostCopy([new_poses]).wait()[0][:V]
 
         if smap.state != state_before:
             return

@@ -18,6 +18,7 @@ import torch
 
 from snakeslam_tpu_torch.ops.descriptors import unpack_bits
 from snakeslam_tpu_torch.ops.matching import FrameFeatures
+from snakeslam_tpu_torch.tracking.staging import upload
 
 
 def pool_features(arrays, slot) -> FrameFeatures:
@@ -72,8 +73,10 @@ class KFFeaturePool:
                                         dtype=np.uint8), ((0, S - n), (0, 0))),
             np.arange(S) < n,
         )
+        # pinned, non-blocking: the host does not wait for the device work
+        # queued ahead of the copy (a pageable copy would)
         for dst, row in zip(self.arrays, rows):
-            dst[slot] = torch.from_numpy(row).to(self.device)
+            dst[slot] = upload(row, self.device)
 
     def slots_for(self, kfs) -> np.ndarray:
         """Ensure every keyframe in ``kfs`` is resident; return its slot

@@ -10,6 +10,14 @@ forward pass runs it once over all ``FUSE_NB`` neighbour rows of the
 keyframe feature pool (a leading batch dim), the backward pass once against
 the new keyframe, so one fuse cycle is two batched searches.  The commit is
 host-side map surgery.
+
+On the card each search is a compiled program (``utils/graphs.py``), as
+the JAX package jits them: ``fuse_pool`` gathers its keyframe-pool rows
+inside the graph, the pool passed by reference (the forward pass's
+``FUSE_NB`` rows, and the backward pass's one row as a batch of one, each
+shape its own graph); ``fuse_search_single`` searches one keyframe's
+cached features (loop closing's SearchAndFuse, ``th = 4``).  The
+pyramid's level count, the image bounds and ``th`` are static.
 """
 
 from __future__ import annotations
@@ -25,9 +33,38 @@ from snakeslam_tpu_torch.ops import matching as M
 from snakeslam_tpu_torch.system.settings import Settings
 from snakeslam_tpu_torch.tracking.staging import (HostCopy,
                                                   kf_features_cached, upload)
+from snakeslam_tpu_torch.utils import graphs
 
 FUSE_NB = 16  # fixed forward fan-out width (n_neighbors=15 + pad): one
               # shape regardless of covisible count
+
+
+def _fuse_search(lm, feats, pose, cam, bf, scales, log_sf, levels: int,
+                 bounds: tuple, th: float = 1.0):
+    """Projection search of ``lm`` into ``feats`` at ``pose`` (leading
+    batch dims allowed) -> feat_point.  ``th`` scales the window: 1.0 for
+    neighbour fusion, 4.0 for the post-loop SearchAndFuse."""
+    st = M.ScaleTables(scales=scales, log_scale_factor=log_sf, levels=levels)
+    return M.search_by_projection_fine(
+        lm, feats, pose, cam, bf, bounds, st, feat_free=feats.valid, th=th,
+        ratio=0.9)["feat_point"]
+
+
+def _fuse_pool(pool, slots, lm, pose, cam, bf, scales, log_sf, levels: int,
+               bounds: tuple):
+    """``_fuse_search`` (th 1) into the keyframe-pool rows ``slots`` (B,)
+    at the (B, 4, 4) ``pose`` -> (B, slots) feat_point."""
+    return _fuse_search(lm, pool_features(pool, slots), pose, cam, bf,
+                        scales, log_sf, levels, bounds)
+
+
+_FUSE_STATIC = ("levels", "bounds")
+# clone: the pipelined cycle commits a keyframe cycle after its dispatch
+fuse_pool = graphs.compiled(_fuse_pool, static=_FUSE_STATIC,
+                            by_ref=("pool",), clone=True, name="fuse_pool")
+fuse_search_single = graphs.compiled(_fuse_search,
+                                     static=_FUSE_STATIC + ("th",),
+                                     name="fuse_search_single")
 
 
 class MapSearcher:
@@ -46,13 +83,12 @@ class MapSearcher:
                        float(settings.height))
         self.n_fused = 0   # merges + links made by commit()
 
-    def _search(self, lm, feats, pose, th: float = 1.0):
-        """Projection search of ``lm`` into ``feats`` at ``pose`` (leading
-        batch dims allowed) -> feat_point.  ``th`` scales the window: 1.0
-        for neighbour fusion, 4.0 for the post-loop SearchAndFuse."""
-        return M.search_by_projection_fine(
-            lm, feats, pose, self.cam, self.bf, self.bounds, self.st,
-            feat_free=feats.valid, th=th, ratio=0.9)["feat_point"]
+    def _tables(self) -> dict:
+        """The searches' camera, scale tables and static settings."""
+        st = self.st
+        return dict(cam=self.cam, bf=self.bf, scales=st.scales,
+                    log_sf=st.log_scale_factor, levels=st.levels,
+                    bounds=self.bounds)
 
     # ------------------------------------------------------------------
 
@@ -69,7 +105,8 @@ class MapSearcher:
         feats = kf_features_cached(smap, kf, self.s.feature_slots,
                                    self.device)
         pose = upload(smap.kf_pose[kf].astype(np.float32), self.device)
-        fp = HostCopy([self._search(lm, feats, pose, th=th)]).wait()[0]
+        fp = HostCopy([fuse_search_single(lm, feats, pose, th=float(th),
+                                          **self._tables())]).wait()[0]
         return self._commit_fuse(fp, ids, kf)
 
     def _commit_fuse(self, feat_point: np.ndarray, ids: np.ndarray,
@@ -136,10 +173,10 @@ class MapSearcher:
         fp_fwd = ids_f = None
         if len(kf_pts):
             lm_f, ids_f = mirror.gather(kf_pts, self._bucket(len(kf_pts)))
-            feats = pool_features(pool.arrays,
-                                  upload(nb_slots.astype(np.int64), dev))
-            poses = upload(smap.kf_pose[padded].astype(np.float32), dev)
-            fp_fwd = self._search(lm_f, feats, poses)
+            fp_fwd = fuse_pool(
+                pool.arrays, upload(nb_slots.astype(np.int64), dev), lm_f,
+                upload(smap.kf_pose[padded].astype(np.float32), dev),
+                **self._tables())
         # backward: all neighbour points into this KF (same snapshot)
         nb_pts = np.unique(np.concatenate(
             [smap.keyframe_points(nb) for nb in neighbors]))
@@ -147,9 +184,10 @@ class MapSearcher:
         fp_bwd = ids_b = None
         if len(nb_pts):
             lm_b, ids_b = mirror.gather(nb_pts, self._bucket(len(nb_pts)))
-            fp_bwd = self._search(
-                lm_b, pool_features(pool.arrays, kf_slot),
-                upload(smap.kf_pose[kf].astype(np.float32), dev))
+            fp_bwd = fuse_pool(
+                pool.arrays, upload(np.array([kf_slot], np.int64), dev),
+                lm_b, upload(smap.kf_pose[kf:kf + 1].astype(np.float32), dev),
+                **self._tables())[0]
         arrays = [x for x in (fp_fwd, fp_bwd) if x is not None]
         if not arrays:
             return None

@@ -10,6 +10,13 @@ against one snapshot (``dispatch_deferred``), then one readback and the
 host commits (``commit_deferred``), then the back-end queues
 (simplification, deferred mapper).  The runner software-pipelines cycles:
 cycle k+1 is dispatched before cycle k commits.
+
+On the card the triangulation of a cycle is one compiled program
+(``triangulate_pool``, ``utils/graphs.py``), as the JAX package's
+``_triangulate_pool``: the keyframe-pool gather, the pair search and the
+triangulation in one captured CUDA graph.  The pool is passed by
+reference (its address joins the key: nothing is copied into the graph);
+the slots, free masks, poses, depth grid and ``th_depth`` are tensors.
 """
 
 from __future__ import annotations
@@ -27,9 +34,37 @@ from snakeslam_tpu_torch.ops.descriptors import hamming_np
 from snakeslam_tpu_torch.ops.triangulate_pairs import triangulate_pairs_batch
 from snakeslam_tpu_torch.system.settings import InputType, Settings
 from snakeslam_tpu_torch.tracking.staging import HostCopy, upload
+from snakeslam_tpu_torch.utils import graphs
 
 TRI_NB = 10  # fixed neighbour fan-out width (LocalMapping.cpp:317-329):
              # one shape regardless of covisible count
+
+
+def _triangulate_pool(pool, slots, free_a, free_b, T_a, T_b, cam, bf,
+                      scales, inv_sigma2, grid_a, th_depth,
+                      feature_distance: int, epipolar_distance: float,
+                      error_mono: float, bounds_wh: tuple):
+    """The keyframe pool's rows ``slots[0]`` (keyframe a) and
+    ``slots[1:]`` (its neighbours) gathered and triangulated pairwise
+    (``triangulate_pairs_batch``).  ``th_depth`` is a 0-d tensor; the
+    matcher's gates and the image bounds are static."""
+    feats = pool_features(pool, slots)
+    # row 0 by slicing: a 0-d index tensor would be read on the host
+    return triangulate_pairs_batch(
+        type(feats)(*(f[0] for f in feats)),
+        type(feats)(*(f[1:] for f in feats)),
+        free_a, free_b, T_a, T_b, cam, bf, scales, inv_sigma2,
+        feature_distance=feature_distance,
+        epipolar_distance=epipolar_distance, error_mono=error_mono,
+        grid_a=grid_a, bounds_wh=bounds_wh, th_depth=th_depth)
+
+
+# clone: the pipelined cycle commits a keyframe cycle after its dispatch
+triangulate_pool = graphs.compiled(
+    _triangulate_pool,
+    static=("feature_distance", "epipolar_distance", "error_mono",
+            "bounds_wh"),
+    by_ref=("pool",), clone=True, name="triangulate_pool")
 
 
 class LocalMapper:
@@ -310,20 +345,18 @@ class LocalMapper:
         # matcher retry epipolar-ambiguous matches in a projection window
         grid = keyframe_depth_grid(smap, kf, self.s.width, self.s.height)
 
-        slots_t = upload(slots.astype(np.int64), dev)
-        out = triangulate_pairs_batch(
-            pool_features(pool.arrays, slots_t[0]),
-            pool_features(pool.arrays, slots_t[1:]),
+        out = triangulate_pool(
+            pool.arrays, upload(slots.astype(np.int64), dev),
             upload(free_a, dev), upload(free_b, dev),
             upload(smap.kf_pose[kf].astype(np.float32), dev),
             upload(smap.kf_pose[padded].astype(np.float32), dev),
             self.cam, self.bf, self.scales, self.inv_sigma2,
-            feature_distance=feature_distance,
-            epipolar_distance=epipolar_distance,
-            error_mono=error_mono,
-            grid_a=upload(grid, dev),
+            upload(grid, dev),
+            upload(np.asarray(self.s.th_depth, dtype=np.float32), dev),
+            feature_distance=int(feature_distance),
+            epipolar_distance=float(epipolar_distance),
+            error_mono=float(error_mono),
             bounds_wh=(float(self.s.width), float(self.s.height)),
-            th_depth=float(self.s.th_depth),
         )
         return out, dict(neighbors=neighbors, free_a=free_a)
 

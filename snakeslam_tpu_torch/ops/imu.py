@@ -9,7 +9,10 @@ keyframe dimensions; the linear initializers are batched least squares over
 keyframe pairs / triplets; the decoupled solver is a Gauss-Newton over the
 keyframe chain whose dense Jacobian comes from ``torch.func.jacfwd`` (the
 state is small: 3 velocities per keyframe + 9 shared parameters).  The
-state solver calls them in float64.
+state solver calls them in float64.  On the card the chain solve is a
+compiled program (``solve_imu_chain``, ``utils/graphs.py``): one captured
+CUDA graph replayed per call, keyed by its flags, iteration count and
+weights (all static) and the chain's bucket.
 
 The numpy twins at the end are what the per-keyframe and per-frame paths
 use: a handful of 3x3 products costs less on the host than one kernel
@@ -30,7 +33,8 @@ import numpy as np
 import torch
 
 from snakeslam_tpu_torch.core import lie
-from snakeslam_tpu_torch.ops.linalg import solve3x3
+from snakeslam_tpu_torch.ops.linalg import solve3x3, solve_lu
+from snakeslam_tpu_torch.utils import graphs
 
 GRAVITY = 9.81
 
@@ -313,10 +317,11 @@ def chain_functions(
     ``unpack(x) -> (v, bg, ba, g, s)`` and ``residuals(x)``."""
     K = chain.R.shape[0]
     dtype, dev = chain.R.dtype, chain.R.device
-    # the gravity norm as the JAX package rounds it (through float32)
-    g_norm = torch.tensor(GRAVITY, dtype=torch.float32).to(dtype).to(dev)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=dev)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=dev)
+    # the gravity norm as the JAX package rounds it (through float32);
+    # every constant is made on the device (no host copy: capturable)
+    g_norm = torch.full((), GRAVITY, dtype=torch.float32,
+                        device=dev).to(dtype)
+    ex, ey = torch.eye(3, dtype=dtype, device=dev)[:2]
 
     def unpack(x):
         v = x[: 3 * K].reshape(K, 3)
@@ -368,7 +373,7 @@ def chain_functions(
     return unpack, residuals
 
 
-def solve_imu_chain(
+def _solve_imu_chain(
     chain: ImuChain,
     bg0: torch.Tensor, ba0: torch.Tensor, g0: torch.Tensor, s0: torch.Tensor,
     weight_R: float = 1000.0,
@@ -396,6 +401,11 @@ def solve_imu_chain(
     in initialization / refinement.  Masked columns and the 1e-6 damping
     keep unsolved and padded states where they are.
     Returns dict(v, bg, ba, g, s, cost).
+
+    ``solve_imu_chain`` is this as a compiled program: the weights, the
+    five ``solve_*`` flags, ``iterations`` and ``prior_bias_weight`` are
+    static; the chain and the four priors are tensors.  Its outputs are
+    the graph's buffers: read them before the next call.
     """
     K = chain.R.shape[0]
     dtype, dev = chain.R.dtype, chain.R.device
@@ -404,12 +414,9 @@ def solve_imu_chain(
         prior_bias_weight)
     n_state = 3 * K + 9
     mask = torch.cat([
-        torch.full((3 * K,), 1.0 if solve_velocity else 0.0),
-        torch.full((3,), 1.0 if solve_bg else 0.0),
-        torch.full((3,), 1.0 if solve_ba else 0.0),
-        torch.full((2,), 1.0 if solve_gravity else 0.0),
-        torch.full((1,), 1.0 if solve_scale else 0.0),
-    ]).to(dtype).to(dev)
+        torch.full((n,), 1.0 if on else 0.0, dtype=dtype, device=dev)
+        for n, on in ((3 * K, solve_velocity), (3, solve_bg), (3, solve_ba),
+                      (2, solve_gravity), (1, solve_scale))])
     eye = torch.eye(n_state, dtype=dtype, device=dev)
     jac = torch.func.jacfwd(residuals)
 
@@ -423,10 +430,18 @@ def solve_imu_chain(
         b = J.T @ r
         # pivoted LU (see solve_scale_gravity): velocity/bias/gravity
         # blocks make H too ill-conditioned for a float32 Cholesky
-        x = x - mask * torch.linalg.solve(H, b)
+        x = x - mask * solve_lu(H, b)
     v, bg, ba, g, s = unpack(x)
     cost = torch.sum(residuals(x) ** 2)
     return dict(v=v, bg=bg, ba=ba, g=g, s=s, cost=cost)
+
+
+solve_imu_chain = graphs.compiled(
+    _solve_imu_chain,
+    static=("weight_R", "weight_P", "weight_V", "solve_bg", "solve_ba",
+            "solve_velocity", "solve_gravity", "solve_scale", "iterations",
+            "prior_bias_weight"),
+    name="imu_chain_solve")
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,12 @@ elementwise arithmetic, so they need no solver library call per frame.
 
 from __future__ import annotations
 
+import threading
+
 import torch
+
+# held while ``solve_lu`` switches the process-wide preferred library
+_library_lock = threading.Lock()
 
 
 def inv3x3(A: torch.Tensor) -> torch.Tensor:
@@ -125,3 +130,26 @@ def solve_psd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     y = torch.linalg.solve_triangular(L, b, upper=False)
     x = torch.linalg.solve_triangular(L.mT, y, upper=True)
     return x[..., 0] if vec else x
+
+
+def solve_lu(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b by pivoted LU, without a host sync: ``solve_ex``
+    leaves its error flag on the device (a singular A gives non-finite
+    values where ``torch.linalg.solve`` raises), so the solve can be
+    captured into a CUDA graph.  On the card the preferred linear-algebra
+    library is cuSOLVER for this call only: for some sizes PyTorch's
+    heuristic picks MAGMA, whose calls cannot be captured.  The setting is
+    process-wide, so a lock holds it from the switch to the restore: two
+    threads' calls take turns and neither restores the other's setting
+    mid-call (linear algebra on another thread meanwhile may also take
+    cuSOLVER).  On the CPU this is ``torch.linalg.solve``'s own LAPACK
+    path, bit for bit."""
+    if A.device.type != "cuda":
+        return torch.linalg.solve_ex(A, b)[0]
+    with _library_lock:
+        prev = torch.backends.cuda.preferred_linalg_library()
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+        try:
+            return torch.linalg.solve_ex(A, b)[0]
+        finally:
+            torch.backends.cuda.preferred_linalg_library(prev)

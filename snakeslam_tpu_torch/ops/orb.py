@@ -14,6 +14,13 @@ both packages sample the same ring, disc and BRIEF pattern.
 Ties: ``jax.lax.top_k`` puts the lower index first among equal values.  Here
 every top-k is a stable descending sort, which does the same; ``argmax`` /
 ``argmin`` already return the first occurrence on CPU and CUDA.
+
+On the card ``extract_orb`` and ``extract_orb_batch`` are compiled programs
+(``utils/graphs.py``), as the JAX package jits them: one captured CUDA
+graph per image shape and static settings (``n_features``, ``levels``,
+``scale_factor``, ``threshold``), with the FAST kernel's launches (one a
+pyramid level) inside it.  Their tables (resize taps, the disc weights,
+the BRIEF offsets) are device constants made on the first, eager call.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from snakeslam_tpu_torch.utils import graphs
 
 # Bresenham circle of radius 3 (the FAST-16 ring), clockwise from 12 o'clock
 FAST_RING = np.array([
@@ -84,7 +93,7 @@ def select_keypoints(score: torch.Tensor, n_keypoints: int, cell: int = 32,
     vals_l, idx_l = [], []
     b = blocks
     col = torch.arange(cell * cell, device=dev)
-    neg_inf = torch.tensor(-math.inf, dtype=b.dtype, device=dev)
+    neg_inf = torch.full((), -math.inf, dtype=b.dtype, device=dev)
     for _ in range(per_cell):
         i = torch.argmax(b, dim=2)
         vals_l.append(torch.gather(b, 2, i[..., None])[..., 0])
@@ -198,8 +207,11 @@ def _resize_bilinear(imgs: torch.Tensor, h: int, w: int) -> torch.Tensor:
     the CPU and a CUDA device give the same bits: a matrix product sums
     (and fuses multiply-adds) in an order of its library's choosing."""
     def along(x, dim, n_out):
-        c0, c1, w0, w1 = (torch.from_numpy(a).to(x.device)
-                          for a in _interp_taps(n_out, x.shape[dim]))
+        n_in = x.shape[dim]
+        c0, c1, w0, w1 = (
+            graphs.constant(("orb_taps", n_out, n_in, k), x.device,
+                            lambda k=k: _interp_taps(n_out, n_in)[k])
+            for k in range(4))
         shape = [1, 1, 1]
         shape[dim] = n_out
         return (x.index_select(dim, c0) * w0.view(shape)
@@ -252,7 +264,8 @@ def _brief_from_patches(patches: torch.Tensor, angle_deg: torch.Tensor):
     single gather of each keypoint's own bin row here (same samples)."""
     bin_ = torch.round(angle_deg * (_BRIEF_BINS / 360.0)).to(torch.int32)
     bin_ = torch.remainder(bin_, _BRIEF_BINS)
-    offsets = torch.from_numpy(_BRIEF_OFFSETS).to(patches.device).long()
+    offsets = graphs.constant("orb_brief_offsets", patches.device,
+                              lambda: _BRIEF_OFFSETS.astype(np.int64))
     samples = torch.gather(patches, -1, offsets[bin_.long()])
     return (samples[..., :DESC_BITS] < samples[..., DESC_BITS:]).to(
         torch.int8)
@@ -288,10 +301,10 @@ def orient_and_brief(imgs: torch.Tensor, uv: torch.Tensor):
     src = _extract_patches(imgs, uv, _BRIEF_SRC)          # (B, N, 46, 46)
     center = src[..., _CENTER_OFF:_CENTER_OFF + _PATCH,
                  _CENTER_OFF:_CENTER_OFF + _PATCH]        # (B, N, 31, 31)
-    wx = torch.from_numpy((_disc_x * _DISC_MASK).astype(np.float32)).to(
-        imgs.device)
-    wy = torch.from_numpy((_disc_y * _DISC_MASK).astype(np.float32)).to(
-        imgs.device)
+    wx = graphs.constant("orb_disc_wx", imgs.device,
+                         lambda: (_disc_x * _DISC_MASK).astype(np.float32))
+    wy = graphs.constant("orb_disc_wy", imgs.device,
+                         lambda: (_disc_y * _DISC_MASK).astype(np.float32))
     # the moments in float64: a float32 pixel times an integer weight is
     # exact there, and the disc's sums are exact or an ulp of float64 apart
     # whatever the order, so the CPU and a CUDA device round them to the
@@ -321,19 +334,20 @@ class OrbFeatures(NamedTuple):
     valid: torch.Tensor     # (N,) bool
 
 
-def extract_orb(image: torch.Tensor, n_features: int = 1000, levels: int = 4,
-                scale_factor: float = 1.2, threshold: float = 20.0):
+def _extract_orb(image: torch.Tensor, n_features: int = 1000,
+                 levels: int = 4, scale_factor: float = 1.2,
+                 threshold: float = 20.0):
     """Full ORB pipeline over an image pyramid of one (H, W) float32 image
     in [0, 255].  Returns OrbFeatures with n_features slots (coords in
     level-0 pixels)."""
-    out = extract_orb_batch(image[None], n_features, levels, scale_factor,
-                            threshold)
+    out = _extract_orb_batch(image[None], n_features, levels, scale_factor,
+                             threshold)
     return OrbFeatures(*[x[0] for x in out])
 
 
-def extract_orb_batch(images: torch.Tensor, n_features: int = 1000,
-                      levels: int = 4, scale_factor: float = 1.2,
-                      threshold: float = 20.0) -> OrbFeatures:
+def _extract_orb_batch(images: torch.Tensor, n_features: int = 1000,
+                       levels: int = 4, scale_factor: float = 1.2,
+                       threshold: float = 20.0) -> OrbFeatures:
     """Batched ORB: (B, H, W) float32 images -> OrbFeatures with leading B.
 
     One FAST launch per pyramid level covers the whole batch (CUDA tensors:
@@ -380,3 +394,10 @@ def extract_orb_batch(images: torch.Tensor, n_features: int = 1000,
     return OrbFeatures(uv=take(uv), response=take(resp), octave=take(octv),
                        angle=take(ang), desc_bits=take(bits),
                        valid=take(valid))
+
+
+_ORB_STATIC = ("n_features", "levels", "scale_factor", "threshold")
+extract_orb = graphs.compiled(_extract_orb, static=_ORB_STATIC,
+                              name="orb")
+extract_orb_batch = graphs.compiled(_extract_orb_batch, static=_ORB_STATIC,
+                                    name="orb_batch")

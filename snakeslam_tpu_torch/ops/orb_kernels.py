@@ -8,7 +8,9 @@ and bound with ``ctypes``; the sources document their design.
 
 CUDA tensors launch the kernel; CPU tensors take the plain version in this
 module.  There is no fallback: a failed build or launch raises.
-``FAST_LAUNCHES`` and ``PATCH_LAUNCHES`` count kernel launches.
+``FAST_LAUNCHES`` and ``PATCH_LAUNCHES`` count kernel launches through
+``graphs.count``: a launch captured into a CUDA graph (the ORB programs of
+``ops/orb.py``) counts once for every replay of that graph.
 """
 
 from __future__ import annotations
@@ -19,12 +21,12 @@ import threading
 import torch
 
 from snakeslam_tpu_torch.ops.orb import FAST_RING
-from snakeslam_tpu_torch.utils import cuda_build
+from snakeslam_tpu_torch.utils import cuda_build, graphs
 
 FAST_SOURCE = "fast_score.cu"
 PATCH_SOURCE = "patch_gather.cu"
-FAST_LAUNCHES = 0     # kernel launches since the last reset (wrapper count)
-PATCH_LAUNCHES = 0
+FAST_LAUNCHES = 0     # kernel launches since the last reset (graph
+PATCH_LAUNCHES = 0    # replays count the launches they hold)
 _COUNT_LOCK = threading.Lock()   # async mode launches from two threads
 _MAX_GRID_YZ = 65535
 FAST_TILE_Y = 16      # output rows of one FAST block (csrc/fast_score.cu)
@@ -101,8 +103,19 @@ def fast_score_batch_reference(imgs: torch.Tensor, threshold: float = 20.0):
     return score, corner
 
 
-def _launch_fast(imgs: torch.Tensor, threshold: float):
+def _count_fast(n: int):
     global FAST_LAUNCHES
+    with _COUNT_LOCK:
+        FAST_LAUNCHES += n
+
+
+def _count_patch(n: int):
+    global PATCH_LAUNCHES
+    with _COUNT_LOCK:
+        PATCH_LAUNCHES += n
+
+
+def _launch_fast(imgs: torch.Tensor, threshold: float):
     B, H, W = imgs.shape
     if B > _MAX_GRID_YZ or -(-H // FAST_TILE_Y) > _MAX_GRID_YZ:
         raise ValueError(f"fast_score_batch: batch {B} x height {H} exceeds "
@@ -115,8 +128,7 @@ def _launch_fast(imgs: torch.Tensor, threshold: float):
                              score.data_ptr(),
                              corner.view(torch.uint8).data_ptr(), stream)
     cuda_build.check_launch(err, "fast_score_batch")
-    with _COUNT_LOCK:
-        FAST_LAUNCHES += 1
+    graphs.count(_count_fast)
     return score, corner
 
 
@@ -153,7 +165,6 @@ def patch_gather_reference(imgs: torch.Tensor, y_tile: torch.Tensor,
 
 
 def _launch_patch(imgs, y_tile, x_tile, size_y, size_x):
-    global PATCH_LAUNCHES
     B, H, W = imgs.shape
     N = y_tile.shape[1]
     out = torch.empty((B, N, size_y, size_x), dtype=torch.float32,
@@ -170,8 +181,7 @@ def _launch_patch(imgs, y_tile, x_tile, size_y, size_x):
                                x_tile.data_ptr(), B, H, W, N, size_y, size_x,
                                vec, out.data_ptr(), stream)
     cuda_build.check_launch(err, "patch_gather")
-    with _COUNT_LOCK:
-        PATCH_LAUNCHES += 1
+    graphs.count(_count_patch)
     return out
 
 

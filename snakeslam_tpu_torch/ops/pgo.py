@@ -10,7 +10,12 @@ Where the JAX package scatter-adds the per-edge blocks into the system,
 this module contracts them with one-hot vertex matrices (a matrix product,
 summed in a fixed order), so a rerun on the card is bit-identical.  The
 accept test is a ``torch.where``: the GN loop never reads a device value on
-the host.  Loop closing runs it in float64 on either device.
+the host.  Loop closing runs it in float64 on either device; on the card
+``solve_pgo`` is a compiled program (``utils/graphs.py``), one captured
+CUDA graph per graph size, ``iterations``, ``use_sim3`` and ``damping``
+(static), as the JAX package jits it.  Loop closing pads each graph to
+power-of-two vertex and edge counts (``padded``), so that the sizes, and
+with them the graphs, repeat from one loop correction to the next.
 
 Conventions: poses are world->camera (Sim3 poses carry sR); edge_T
 approximates T_j @ T_i^-1; residual = log(T_j T_i^-1 edge_T^-1); the
@@ -21,11 +26,13 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from snakeslam_tpu_torch.core import lie
 from snakeslam_tpu_torch.ops.ba import _one_hot
 from snakeslam_tpu_torch.ops.linalg import solve_psd
+from snakeslam_tpu_torch.utils import graphs
 
 
 class PoseGraph(NamedTuple):
@@ -60,10 +67,11 @@ def _se3_adjoint(T: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bot], dim=-2)
 
 
-def solve_pgo(graph: PoseGraph, iterations: int = 20,
-              use_sim3: bool = False, damping: float = 1e-6):
+def _solve_pgo(graph: PoseGraph, iterations: int = 20,
+               use_sim3: bool = False, damping: float = 1e-6):
     """Gauss-Newton on the pose graph.  Returns (poses, final_cost) as
-    device tensors of the graph's dtype."""
+    device tensors of the graph's dtype (as ``solve_pgo``: the graph's
+    buffers, read before the next call)."""
     V = graph.poses.shape[0]
     D = 7 if use_sim3 else 6
     dtype = graph.poses.dtype
@@ -127,3 +135,39 @@ def solve_pgo(graph: PoseGraph, iterations: int = 20,
         r = torch.where(accept, r_new, r)
         rel = torch.where(accept, rel_new, rel)
     return poses, cost
+
+
+solve_pgo = graphs.compiled(_solve_pgo,
+                            static=("iterations", "use_sim3", "damping"),
+                            name="pgo")
+
+
+def bucket(n: int, minimum: int = 16) -> int:
+    """The least power of two from ``minimum`` that holds ``n``."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def padded(poses: np.ndarray, fixed: np.ndarray, edge_i: np.ndarray,
+           edge_j: np.ndarray, edge_T: np.ndarray,
+           edge_weight: np.ndarray) -> dict:
+    """A pose graph's fields as host arrays, its V vertices and E edges
+    padded to ``bucket(V)`` and ``bucket(E)``: pad vertices are identity
+    poses outside the graph (``valid`` False, so the solve leaves them as
+    they are), pad edges copies of the first edge that count for nothing
+    (``edge_valid`` False, weight 0).  The first V poses of the solve are
+    the graph's; only the solve's last bits depend on the padding."""
+    V, E = len(poses), len(edge_i)
+    Vp, Ep = bucket(V), bucket(E)
+    take = np.where(np.arange(Ep) < E, np.arange(Ep), 0)
+    out = dict(poses=np.broadcast_to(np.eye(4, dtype=poses.dtype),
+                                     (Vp, 4, 4)).copy(),
+               fixed=np.zeros(Vp, bool), valid=np.arange(Vp) < V,
+               edge_i=edge_i[take], edge_j=edge_j[take], edge_T=edge_T[take],
+               edge_weight=np.where(np.arange(Ep) < E, edge_weight[take], 0),
+               edge_valid=np.arange(Ep) < E)
+    out["poses"][:V] = poses
+    out["fixed"][:V] = fixed
+    return out

@@ -24,6 +24,12 @@ on a long keyframe chain the reduced camera system is ill-conditioned, and
 float32 rounding of its assembly and Cholesky solve moved the middle of a
 20-keyframe loop by ~5 mm between two summation orders (CPU and GPU) in
 one 3-iteration full BA; in float64 the two agree to ~1 um.
+
+On the card the three unsharded passes are compiled programs
+(``utils/graphs.py``), as the JAX package jits them: ``full_ba_solve``,
+``point_ba_solve`` and ``outlier_classify``, one captured CUDA graph per
+(C, P) bucket and static settings (iterations, chi2 thresholds).  The
+sharded step (``n_devices > 1``) runs eagerly over its mesh.
 """
 
 from __future__ import annotations
@@ -47,8 +53,23 @@ from snakeslam_tpu_torch.parallel import multichip as MC
 from snakeslam_tpu_torch.system.settings import Settings
 from snakeslam_tpu_torch.tracking.staging import (HostCopy,
                                                   pad_frames_features, upload)
+from snakeslam_tpu_torch.utils import graphs
 
 F32 = np.float32
+
+# the passes' programs; clone: each pass's graphs, one per (C, P) bucket,
+# share one memory pool
+full_ba_solve = graphs.compiled(
+    BA.solve_ba, static=("iterations", "huber_mono", "huber_stereo",
+                         "lm_lambda0", "optimize_points"),
+    clone=True, name="gba_full_ba")
+point_ba_solve = graphs.compiled(
+    BA.solve_point_only,
+    static=("iterations", "huber_mono", "huber_stereo"), clone=True,
+    name="gba_point_ba")
+outlier_classify = graphs.compiled(
+    BA.classify_outliers, static=("chi2_mono", "chi2_stereo"), clone=True,
+    name="gba_outliers")
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -149,7 +170,7 @@ class GlobalBA:
                 self._sharded_full_ba(problem, iterations)).wait()
             cost = float("nan")
         else:
-            cam_pose, points, cost = HostCopy(BA.solve_ba(
+            cam_pose, points, cost = HostCopy(full_ba_solve(
                 problem, self.cam64, self.bf64,
                 iterations=iterations)).wait()
         smap.kf_pose[aux["kfs"]] = cam_pose[: len(aux["kfs"])]
@@ -162,7 +183,7 @@ class GlobalBA:
         if smap.n_points < 10:
             return
         problem, aux = self.pack_full()
-        points = HostCopy([BA.solve_point_only(
+        points = HostCopy([point_ba_solve(
             problem, self.cam64, self.bf64, iterations=iterations)]).wait()[0]
         smap.pt_pos[aux["pts"]] = points[: len(aux["pts"])]
         smap.state += 1
@@ -172,7 +193,7 @@ class GlobalBA:
         th^2 before the final BA, System.cpp:202-205)."""
         smap = self.map
         problem, aux = self.pack_full()
-        out = HostCopy([BA.classify_outliers(
+        out = HostCopy([outlier_classify(
             problem, self.cam64, self.bf64, problem.cam_pose, problem.points,
             chi2_mono=factor * 2.1**2, chi2_stereo=factor * 2.3**2,
         )]).wait()[0]

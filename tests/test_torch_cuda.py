@@ -45,12 +45,18 @@ card without a host sync, bit-identical on a rerun, within 1e-9 of four
 CPU shards, and the sharded matcher exact; one shard a card where the
 machine has two or more (skipped below two).
 
-The graph layer (``utils/graphs.py``): the four compiled programs (the
-tracking window, the coarse and fine tracking steps, the local-BA solve)
-replay bit for bit what their eager run computes, and a rerun replays the
-same bits; ``LAUNCHES`` counts a replay's pose launches; a worker thread
-captures while the main thread replays; a failed capture raises and never
-reruns the eager version.
+The graph layer (``utils/graphs.py``): every compiled program (the
+tracking window, the coarse and fine tracking steps, the local-BA solve;
+ORB on one image and on a batch, the stereo front-end, the IMU chain
+solve, the triangulation pool, the fusion searches (the pool program on
+16 rows and on one), the three global-BA passes and PGO on the inputs of
+``utils/graph_cases.py``) replays bit for bit what its eager run
+computes, and a rerun replays the same bits; ``LAUNCHES`` counts a
+replay's pose launches and ``FAST_LAUNCHES`` an ORB replay's FAST
+launches; a program keeps its most recently used graphs; the graphs of a
+cloning program share one pool and each call's outputs stay its own; a
+worker thread captures while the main thread replays; a failed capture
+raises and never reruns the eager version.
 """
 
 import numpy as np
@@ -312,8 +318,11 @@ def test_fast_kernel_on_a_tum_frame_pyramid(cuda_device, tmp_path,
         return inner(imgs, threshold)
 
     monkeypatch.setattr(OK, "fast_score_batch", record)
-    FeatureDetector(s, device=cuda_device).detect(
-        np.clip(gray, 0, 255).astype(np.uint8), 0, 0.0)
+    # eagerly: inside ORB's compiled program the wrapper runs in the
+    # warm-up and again in the capture, and a replay runs no Python
+    with graphs.disabled():
+        FeatureDetector(s, device=cuda_device).detect(
+            np.clip(gray, 0, 255).astype(np.uint8), 0, 0.0)
     monkeypatch.undo()
     assert len(seen) == s.fd_levels == 4
     assert tuple(seen[0][0].shape) == (1, 480, 640)
@@ -933,14 +942,22 @@ def _window_program_inputs(device):
     return WS.window_track, args, kw
 
 
+_CASES: dict = {}
+
+
 def _program_inputs(name, device):
     from snakeslam_tpu_torch.entry import entry
     from snakeslam_tpu_torch.models import tracking_step as TS
     from snakeslam_tpu_torch.optim import lba as LBA
+    from snakeslam_tpu_torch.utils import graph_cases as GC
     from snakeslam_tpu_torch.utils.backend_problems import ba_problem
 
     if name == "window_track":
         return _window_program_inputs(device)
+    if name in QUEUE_D_PROGRAMS:
+        if device not in _CASES:
+            _CASES[device] = GC.program_cases(device)
+        return _CASES[device][name]
     _, args = entry(device)
     if name == "fine_step":
         return TS.fine_step, args, {}
@@ -968,8 +985,15 @@ def _same_bits(a, b):
         and x.tobytes() == y.tobytes() for x, y in zip(a, b))
 
 
+QUEUE_D_PROGRAMS = ("orb", "orb_batch", "stereo_frontend",
+                    "imu_chain_solve", "triangulate_pool", "fuse_pool",
+                    "fuse_pool_row", "fuse_search_single", "gba_full_ba",
+                    "gba_point_ba", "gba_outliers", "pgo")
+
+
 @pytest.mark.parametrize("name", ["window_track", "coarse_step",
-                                  "fine_step", "lba_solve"])
+                                  "fine_step", "lba_solve",
+                                  *QUEUE_D_PROGRAMS])
 def test_graph_replays_equal_the_eager_run(cuda_device, name):
     prog, args, kw = _program_inputs(name, cuda_device)
     prog.clear()
@@ -997,6 +1021,85 @@ def test_launch_counts_read_replays(cuda_device):
     entry, = prog.entries()
     assert entry.replays == 2
     assert list(entry.tally.values()) == [2 * GRAPH_W]
+    # ORB: the FAST kernel's launches (one a pyramid level) counted from
+    # the replays of its graph
+    orb, args, kw = _program_inputs("orb", cuda_device)
+    orb.clear()
+    for _ in range(3):
+        n0 = OK.FAST_LAUNCHES
+        orb(*args, **kw)
+        assert OK.FAST_LAUNCHES - n0 == kw["levels"]
+    entry, = orb.entries()
+    assert entry.replays == 2
+    assert list(entry.tally.values()) == [kw["levels"]]
+
+
+def test_by_reference_graph_reads_its_table_and_goes_with_it(cuda_device):
+    import gc
+
+    def gather(table, rows):
+        return table[rows] * 2.0
+
+    prog = graphs.compiled(gather, by_ref=("table",), name="gather_by_ref")
+    table = torch.arange(12.0, device=cuda_device).reshape(6, 2)
+    rows = torch.tensor([4, 1], device=cuda_device)
+    assert torch.equal(prog(table, rows), gather(table, rows))   # capture
+    table.add_(1.0)
+    # the replay reads the table where it lies, as it is now
+    assert torch.equal(prog(table, rows), gather(table, rows))
+    assert (prog.captures, prog.replays) == (1, 1)
+    other = table.clone()
+    assert torch.equal(prog(other, rows), gather(other, rows))
+    assert len(prog.entries()) == 2          # another address, another graph
+    del table
+    gc.collect()
+    assert len(prog.entries()) == 1          # the freed table's graph is gone
+    assert torch.equal(prog(other, rows), gather(other, rows))
+    assert prog.replays == 2
+
+
+def test_a_program_keeps_its_most_recent_graphs(cuda_device):
+    prog = graphs.compiled(lambda x: x * 2.0, max_entries=2, name="lru")
+    xs = [torch.arange(float(n), device=cuda_device) for n in (3, 4, 5)]
+    for x in xs[:2]:
+        prog(x)                                   # two captures
+    prog(xs[0])                                   # 3 is now the most recent
+    prog(xs[2])                                   # drops 4, not 3
+    assert (prog.captures, prog.replays, prog.evictions) == (3, 1, 1)
+    keys = list(prog._entries)
+    assert keys == [prog.key(xs[0]), prog.key(xs[2])]
+    assert torch.equal(prog(xs[1]), xs[1] * 2.0)  # captured again
+    assert prog.captures == 4 and len(prog.entries()) == 2
+
+
+def test_clone_programs_share_one_pool_and_keep_their_outputs(cuda_device):
+    def scale(x, k):
+        return (x * k).cumsum(0)
+
+    shared = graphs.compiled(scale, clone=True, name="shared_pool")
+    private = graphs.compiled(scale, name="private_pools")
+    xs = [torch.rand(n, device=cuda_device) for n in (1000, 3000, 2000)]
+    k = torch.full((), 3.0, device=cuda_device)
+    for prog in (shared, private):
+        for x in xs:
+            prog(x, k)                            # captures
+        outs = [prog(x, k) for x in xs for _ in range(2)]   # replays
+        for i, x in enumerate(xs):
+            ref = scale(x, k)
+            assert torch.equal(outs[2 * i], ref)
+            assert torch.equal(outs[2 * i + 1], ref)
+    assert len({tuple(e.graph.pool()) for e in shared.entries()}) == 1
+    assert len({tuple(e.graph.pool()) for e in private.entries()}) == 3
+    # a clone's outputs are its own: the next replay leaves them be
+    a = shared(xs[0], k)
+    shared(xs[0], torch.full((), 5.0, device=cuda_device))
+    assert torch.equal(a, scale(xs[0], k))
+    # with every graph of the pool dropped, the next capture takes a new one
+    pool = shared.entries()[0].graph.pool()
+    shared.clear()
+    assert torch.equal(shared(xs[1], k), scale(xs[1], k))
+    assert torch.equal(shared(xs[1], k), scale(xs[1], k))
+    assert shared.entries()[0].graph.pool() != pool
 
 
 def test_worker_captures_while_the_main_thread_replays(cuda_device):
