@@ -28,6 +28,10 @@ exits non-zero:
      64 x 480 x 752 with 1000 blocks of 56x256 per image: exact, timed
      beside ``bound_us`` and ``library_us``, one advanced-indexing call
      computing the same blocks (a yardstick the port never calls);
+ 6b. prng: the RANSACs' threefry draws (core/prng.py) on the card against
+     the CPU at the lanes' shapes (256 x 2048, 128 x 1024, 512 x 1024):
+     32- and 64-bit words, float32 and float64 uniforms bit for bit and
+     the sample indices equal, the card's draws without a host sync;
   7. slice: the smooth stereo lane at full width (6000-point world, seed 7,
      400 frames, 1024 feature slots, 2048 pinned local-map slots, window
      128, two-stage) with the full keyframe back-end (triangulation,
@@ -61,7 +65,10 @@ exits non-zero:
      relocalization, the keyframe back-end) on the card, then
      ``finalize()``; pose-kernel launches counted apart for tracking, loop
      verification and the end-of-run realign; gated against the JAX
-     package's CPU run of the same lane (PERF.md);
+     package's CPU run of the same lane (PERF.md); the run traced
+     (utils/lane_trace.py, float32 draws as the JAX run's) and the first
+     point where the trace parts from the committed JAX and port-CPU
+     traces printed, not gated;
  14. batched pose kernel: the realign's launch (B frames, N = 1024, 4 x 3
      iterations) and a loop verification's (B = 1, 3 x 3) on the inputs the
      loop lane gave them, against the plain version, bit-identical reruns,
@@ -70,7 +77,7 @@ exits non-zero:
      keyframes split off and drifted (utils/loop_problems.py), closed with
      the global-BA polish on both devices; then the pose-graph solve and
      the Sim3 RANSAC of that closure rerun on the card without a host sync
-     (the PGO bit-identical);
+     with the sample indices the closure drew (the PGO bit-identical);
  16. sharded loop lane: the loop lane again with ``n_devices = 4``: every
      full BA (the loop correction's, ``finalize``'s) through the sharded
      step of parallel/multichip.py over a 4-shard mesh (all four shards on
@@ -96,7 +103,9 @@ exits non-zero:
      initialization, the gyro-bias and gravity / scale stages inside the
      run, gyro-predicted windows through the pose kernel's mono rows, then
      ``finalize()`` with the visual-inertial alternation; gated against the
-     JAX package's CPU run of the same lane (PERF.md);
+     JAX package's CPU run of the same lane (PERF.md); float64 draws, as
+     that run's (x64), the run traced and its first parting from the
+     committed traces printed, not gated;
  21. mono pose kernel: a coarse (1 x 3) and a fine (2 x 2) problem of a
      tracked window after the visual-inertial initialization and the
      realign batch of ``finalize()``, all mono rows (``right = -1``), on
@@ -107,8 +116,9 @@ exits non-zero:
      results within 1e-9, ms on both;
  23. mono-VI CPU against GPU: the small configuration that
      tests/test_torch_mono_vi_slice.py runs (3000-point world, seed 5,
-     10 fps, window 8), 80 frames of it, on both devices with the same
-     RANSAC hypotheses.
+     10 fps, window 8), 80 frames of it, on both devices, each drawing
+     its own RANSAC hypotheses (the same by construction, float64); the
+     card's trace against the CPU run's and the committed traces, printed.
 
  24. tum_render: the CLI lane's TUM-RGBD-format sequence
      (utils/tum_fixture.py: seed 7, 2000 points in a 5 m room, 300 frames
@@ -159,8 +169,8 @@ run is gated on a local-BA graph captured on a worker thread and on one
 ORB graph captured and replayed on the producer thread, while the main
 thread replayed the tracking steps.
 
-``--only a,b`` runs the build and then only the named phases of 13-30
-(``loop``: 13-15; ``multichip``: 13 and 16-19; ``mono_vi``,
+``--only a,b`` runs the build and then only the named phases of 6b and
+13-30 (``prng``: 6b; ``loop``: 13-15; ``multichip``: 13 and 16-19; ``mono_vi``,
 ``vi_solvers``, ``mono_vi_cpu_gpu``, ``cli``; ``graphs``: 4, 7, 8, 13,
 20, 24, 25 and 30) and prints no result line: for iterating on one lane.
 
@@ -195,6 +205,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from snakeslam_tpu_torch.core import prng
 from snakeslam_tpu_torch.core.camera import Pinhole
 from snakeslam_tpu_torch.core.trajectory import read_tum
 from snakeslam_tpu_torch.entry import dryrun_multichip, entry
@@ -249,6 +260,7 @@ from snakeslam_tpu_torch.tracking.windowed import WindowedRunner
 from snakeslam_tpu_torch.utils import cuda_build, graphs
 from snakeslam_tpu_torch.utils import graph_cases as GC
 from snakeslam_tpu_torch.utils import loop_problems as LP
+from snakeslam_tpu_torch.utils import lane_trace as LT
 from snakeslam_tpu_torch.utils import tum_fixture as TF
 from snakeslam_tpu_torch.utils import vi_problems as VP
 from snakeslam_tpu_torch.utils.backend_problems import ba_problem, pair_problem
@@ -256,7 +268,6 @@ from snakeslam_tpu_torch.utils.pose_problems import pose_problem
 from snakeslam_tpu_torch.utils.render_world import (render_frame,
                                                      render_sequence)
 from snakeslam_tpu_torch.utils.synthetic import (SyntheticWorld,
-                                                 loop_trajectory,
                                                  orbit_trajectory)
 
 POSE_ATOL = 2e-4          # tests/test_pose_pallas.py tolerances
@@ -290,7 +301,16 @@ BA_ATOL = 1e-4            # solve_ba on the card against the CPU
 LOOP_FRAMES, LOOP_WINDOW = 400, 64
 # the JAX package's run of the loop lane on the CPU, one window per fetch
 # (scripts/jax_loop_reference.py; PERF.md): the loop lane is gated against
-# it, keyframes within 10% and ATE within 25% before and after finalize
+# it, keyframes within 10% and ATE at most LOOP_ATE_FACTOR of it before and
+# after finalize.  The lane's ATE spreads with float32 summation order far
+# beyond that factor below it (its trace parts from the JAX run's at a
+# keyframe cycle by one point, long before the loop; PERF.md section 6), so
+# parity is held on the trace instead, for the unsharded and the sharded
+# lane alike (both run the same steps until the first loop correction): the
+# first LOOP_TRACE_CYCLES keyframe cycles' counts equal the JAX trace's, and
+# the verified loop closes onto the JAX run's candidate keyframe
+LOOP_ATE_FACTOR = 1.25
+LOOP_TRACE_CYCLES = 5
 JAX_LOOP = dict(tracked=400, keyframes=81, points=6280,
                 ate_m=0.020929448906971324, loops_closed=1,
                 keyframes_final=71, ate_final_m=0.011153146451384117)
@@ -312,8 +332,10 @@ POSE_OPS_PER_MONO_FEATURE_STEP = 201
 POSE_OPS_PER_MONO_FEATURE_RECLASS = 31
 # the JAX package's run of the mono-VI lane on the CPU with x64 on, one
 # window per fetch (scripts/jax_mono_vi_reference.py; PERF.md): the mono-VI
-# lane is gated against it, tracked within 2%, keyframes within 15%, Sim3
-# ATE within MONO_VI_ATE_FACTOR of it before and after finalize
+# lane draws its hypotheses (float64) and makes its two-view geometry as
+# that run does, and is gated against it: the same tracked frames,
+# keyframes (also after finalize) and landing frames, points within 1%,
+# Sim3 ATE within MONO_VI_ATE_RTOL of it before and after finalize
 JAX_MONO_VI = dict(tracked=237, keyframes=20, points=2540,
                    sim3_ate_m=0.008382250966750248,
                    align_scale=1.0002830087818257,
@@ -322,7 +344,8 @@ JAX_MONO_VI = dict(tracked=237, keyframes=20, points=2540,
                    map_transforms=1, windows=17, keyframes_final=14,
                    sim3_ate_final_m=0.0024404790072371646,
                    align_scale_final=1.000703472064119)
-MONO_VI_ATE_FACTOR = 2.0
+MONO_VI_ATE_RTOL = 0.1
+MONO_VI_POINTS_RTOL = 0.01
 VI_SOLVER_ATOL = 1e-9     # the IMU solvers on the card against the CPU
 # mono-VI CPU against GPU (80 frames of the small configuration)
 MONO_VI_SMALL_FRAMES = 80
@@ -794,7 +817,8 @@ def pixels_phase(dev, lane) -> dict:
     ate, _, _ = system.ate_against_gt(with_scale=False)
     levels = lane["settings"].fd_levels
     chunks = -(-PIXELS_FRAMES // PIXELS_CHUNK)
-    phase("pixels_lane", frames=PIXELS_FRAMES, tracked=tracked,
+    phase("pixels_lane", draw=draw_name(), frames=PIXELS_FRAMES,
+          tracked=tracked,
           keyframes=system.map.n_keyframes, points=system.map.n_points,
           ate_m=ate, wall_s=wall, fps=tracked / wall,
           image="752x480 uint8 stereo pairs, 1000 features",
@@ -870,7 +894,8 @@ def pixels_cpu_gpu_phase(dev, lane):
         l0["keys"] += len(c0 ^ g0)
         l0["desc"] += sum(fc[k][0] != fg[k][0] for k in c0 & g0)
         l0["depth"] += sum(fc[k][1] != fg[k][1] for k in c0 & g0)
-    phase("pixels_cpu_vs_gpu", frames=8, features=n_all, common=n_common,
+    phase("pixels_cpu_vs_gpu", draw=draw_name(), frames=8, features=n_all,
+          common=n_common,
           equal_desc=n_desc, equal_stereo_flag=n_flags,
           level0_features=l0["n"], level0_key_mismatch=l0["keys"],
           level0_desc_mismatch=l0["desc"], level0_depth_mismatch=l0["depth"])
@@ -950,7 +975,7 @@ def slice_phase(dev):
     tracked = len(system.tracker.trajectory)
     ate, _, _ = system.ate_against_gt(with_scale=False)
     counts = backend_counts(system)
-    phase("slice", frames=len(frames), tracked=tracked,
+    phase("slice", draw=draw_name(), frames=len(frames), tracked=tracked,
           keyframes=system.map.n_keyframes, points=system.map.n_points,
           ate_m=ate, wall_s=wall, fps=tracked / wall, launches=launches,
           device_calls=runner.n_device_calls, graphs=g,
@@ -1101,7 +1126,8 @@ def cpu_gpu_phase(dev):
     cc, gc = _centres(c), _centres(g)
     diff = max(np.linalg.norm(cc[k] - gc[k]) for k in cc) if cc else np.inf
     bc, bg = backend_counts(c), backend_counts(g)
-    phase("cpu_vs_gpu", tracked_cpu=len(c.tracker.trajectory),
+    phase("cpu_vs_gpu", draw=draw_name(),
+          tracked_cpu=len(c.tracker.trajectory),
           tracked_gpu=len(g.tracker.trajectory),
           keyframes_cpu=c.map.n_keyframes, keyframes_gpu=g.map.n_keyframes,
           points_cpu=c.map.n_points, points_gpu=g.map.n_points,
@@ -1116,15 +1142,6 @@ def cpu_gpu_phase(dev):
         check(bg[k] >= 1, f"no {k} on the card: {bg}")
         check(abs(bg[k] - bc[k]) <= 0.1 * bc[k],
               f"{k}: GPU {bg[k]}, CPU {bc[k]}")
-
-
-def loop_settings(world) -> Settings:
-    """bench.py's _build_loop settings: _base_settings with the local-map
-    bucket pinned and th_map 400."""
-    s = smooth_settings(world)
-    s.local_map_slots = 4096
-    s.th_map = 400
-    return s
 
 
 class Probe:
@@ -1290,13 +1307,7 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
     ``finalize()``; gated on the JAX package's CPU run with as many
     devices (``JAX_LOOP``, ``JAX_LOOP_SHARDED``) and, sharded, on the
     unsharded lane's run (``unsharded``) of the same script."""
-    world = SyntheticWorld(n_points=60000, seed=7)
-    s = loop_settings(world)
-    s.n_devices = n_devices
-    system = SlamSystem(s, dev)
-    frames = list(synthetic_frames(
-        world, loop_trajectory(LOOP_FRAMES, radius=7.0, fps=200.0), s,
-        noise_px=0.3))
+    system, frames = LT.build_loop_lane(dev, LOOP_FRAMES, n_devices)
     runner = WindowedRunner(system, window=LOOP_WINDOW)
     lc = system.loop_closing
     correct_ms = []
@@ -1340,6 +1351,9 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
         full = stack.enter_context(Probe(GBA.GlobalBA, "full_ba"))
         sharded = stack.enter_context(
             Probe(GBA.GlobalBA, "_sharded_full_ba"))
+        # the lane's trace, to find where it parts from the committed
+        # traces of the same lane (float32 draws, as the JAX reference's)
+        trace = stack.enter_context(LT.LaneTrace(system, MI, LC))
         g0 = graph_counts()
         PF.LAUNCHES = 0
         t0 = time.perf_counter()
@@ -1365,6 +1379,7 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
         sharded_fin = stack.enter_context(
             Probe(GBA.GlobalBA, "_sharded_full_ba"))
         probes_fin = program_probes(stack, gba_programs)
+        trace.summary("run", False, draw_name())
         rematch = program_probes(stack, ("GlobalBA.rematch_intermediate",),
                                  EAGER_SITES)
         g1 = graph_counts()
@@ -1374,6 +1389,7 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
         torch.cuda.synchronize()
         finalize_s = time.perf_counter() - t0
         finalize_launches = PF.LAUNCHES - n0
+        trace.summary("final", False, draw_name())
     g_fin = graph_delta(g1)
     eager_host_s = dict(program_host_s(eager),
                         **program_host_s(rematch),
@@ -1386,12 +1402,14 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
     ate_final, _, _ = system.ate_against_gt(with_scale=False)
     kfs_final = system.map.n_keyframes
     tracking = run_launches - verify.launches
+    parting = trace_parting("loop", trace.trace)
     name = "loop_lane" if n_devices == 1 else "loop_sharded"
     phase(name, frames=LOOP_FRAMES, window=LOOP_WINDOW, n_devices=n_devices,
           mesh=([str(d) for d in lc.gba._mesh.devices]
                 if lc.gba._mesh is not None else None),
           tracked=tracked, keyframes=kfs, points=pts, ate_m=ate,
           loops_closed=loops, wall_s=wall, fps=tracked / wall,
+          trace_s=trace.seconds, wall_s_without_trace=wall - trace.seconds,
           loop_correction_ms=correct_ms, finalize_s=finalize_s,
           keyframes_final=kfs_final, points_final=system.map.n_points,
           ate_final_m=ate_final, device_calls=runner.n_device_calls,
@@ -1409,7 +1427,8 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
           finalize_program_host_s=program_host_s(probes_fin),
           eager_host_s=eager_host_s, memory=memory(),
           jax_cpu=JAX_LOOP if n_devices == 1 else JAX_LOOP_SHARDED,
-          card=card_line())
+          draw=draw_name(), loop_candidates=trace.trace["loops"],
+          trace_parting=parting, card=card_line())
     J = JAX_LOOP if n_devices == 1 else JAX_LOOP_SHARDED
     check(tracked == J["tracked"], f"loop lane tracked {tracked} of 400")
     check(loops >= 1, "the loop lane closed no loop")
@@ -1419,11 +1438,19 @@ def loop_lane_phase(dev, n_devices: int = 1, unsharded=None) -> dict:
           <= 0.1 * J["keyframes_final"],
           f"loop lane {kfs_final} keyframes after finalize, the JAX run "
           f"{J['keyframes_final']}")
-    check(abs(ate - J["ate_m"]) <= 0.25 * J["ate_m"],
+    check(ate <= LOOP_ATE_FACTOR * J["ate_m"],
           f"loop lane ATE {ate} m, the JAX run {J['ate_m']} m")
-    check(abs(ate_final - J["ate_final_m"]) <= 0.25 * J["ate_final_m"],
+    check(ate_final <= LOOP_ATE_FACTOR * J["ate_final_m"],
           f"loop lane ATE {ate_final} m after finalize, the JAX run "
           f"{J['ate_final_m']} m")
+    check(parting["jax"]["cycles_compared"] >= LOOP_TRACE_CYCLES,
+          f"the {name}'s trace parts from the JAX trace at "
+          f"{parting['jax']['parting']}")
+    closed = [lp[1] for lp in trace.trace["loops"] if lp[5]]
+    jax_closed = [lp[1] for lp in LT.load()["jax"]["loop"]["loops"] if lp[5]]
+    check(closed[:1] == jax_closed[:1],
+          f"the {name} closed onto keyframe frames {closed}, the JAX run's "
+          f"{jax_closed}")
     check(verify.calls >= 1 and verify.launches == verify.calls,
           f"{verify.launches} pose launches for {verify.calls} loop "
           "verifications")
@@ -1711,6 +1738,71 @@ def pose_cases_phase(phase_name: str, cases, mono: bool = False) -> dict:
     return timing
 
 
+# the shapes the lanes draw at: the mono initializer's essential (256
+# hypotheses) and homography (128) draws over a 2048-slot match bucket,
+# and 512 x 1024 (the relocalizer's PnP over a 1024-row bucket)
+PRNG_SHAPES = ((256, 2048), (128, 1024), (512, 1024))
+
+
+def draw_name() -> str:
+    """The RANSACs' draw dtype now (``prng.x64``: float64 where the lane's
+    JAX reference ran with ``jax_enable_x64``)."""
+    return str(prng.draw_dtype()).replace("torch.", "")
+
+
+def prng_phase(dev) -> None:
+    """The threefry draws on the card against the CPU's at the lanes'
+    shapes: 32- and 64-bit words, float32 and float64 uniforms (minval
+    1e-9, the RANSACs' draw) bit for bit, and the sample indices of both
+    dtypes equal; the card's draws under
+    ``torch.cuda.set_sync_debug_mode("error")``; ms of one card draw."""
+    key = prng.split(prng.PRNGKey(7))[1]
+    rows = []
+    for H, N in PRNG_SHAPES:
+        mask = torch.arange(N) < 3 * N // 4          # a padded tail
+
+        def draws(m):
+            d = m.device
+            out = [prng.random_bits(key, (H, N), 32, d),
+                   prng.random_bits(key, (H, N), 64, d)]
+            for dt in (torch.float32, torch.float64):
+                out += [prng.uniform(key, (H, N), dt, 1e-9, 1.0, d),
+                        prng.sample_without_replacement(key, m, H, 8, dt)]
+            return out
+
+        cpu = [t.numpy() for t in draws(mask)]
+        mask_dev = mask.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card = draws(mask_dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        card = [t.cpu().numpy() for t in card]
+        same = [_same_bits([x], [y]) for x, y in zip(cpu, card)]
+        ms = {str(dt).replace("torch.", ""): _wall_ms(
+            lambda dt=dt: prng.sample_without_replacement(
+                key, mask_dev, H, 8, dt), True)
+            for dt in (torch.float32, torch.float64)}
+        rows.append(dict(shape=[H, N], bits32=same[0], bits64=same[1],
+                         uniform_f32=same[2], samples_f32=same[3],
+                         uniform_f64=same[4], samples_f64=same[5],
+                         sample_ms=ms))
+        check(all(same), f"threefry draws at {H} x {N}: card against CPU "
+              f"{same}")
+    phase("prng", key=[int(k) for k in key], draws=rows, card=card_line())
+
+
+def trace_parting(lane: str, trace: dict) -> dict:
+    """Where the card's trace of ``lane`` first parts from the committed
+    traces (``utils/lane_trace.py``): the JAX package's and the port's
+    CPU run's, with the largest keyframe-centre difference up to there.
+    Printed, not gated; a missing or unreadable trace raises."""
+    ref = LT.load()
+    return {group: LT.first_parting(trace, ref[group][lane])
+            for group in ("jax", "port_cpu")}
+
+
 def loop_cpu_gpu_phase(dev) -> None:
     """The drifted ring closed on the CPU and on the card; then the
     card's pose-graph solve and Sim3 RANSAC of that closure rerun under
@@ -1744,21 +1836,20 @@ def loop_cpu_gpu_phase(dev) -> None:
         for k in new_side)
     # the closure's PGO and RANSAC again, with any host sync an error
     (graph,), pgo_kw = pgo.args
-    (src, dst, mask, _), rs_kw = rs.args[0][:4], rs.args[1]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(s.random_seed + 7)
+    (src, dst, mask, sample_idx), rs_kw = rs.args[0][:4], rs.args[1]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         again = [PGO.solve_pgo(graph, **pgo_kw) for _ in range(2)]
-        SIM3.sim3_ransac(src, dst, mask, gen, **rs_kw)
+        # with the sample indices the closure drew
+        SIM3.sim3_ransac(src, dst, mask, sample_idx, **rs_kw)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     same = all(torch.equal(x, y) for a in again for x, y in zip(a, pgo.out[0]))
     pgo_ms = time_calls_us(lambda: PGO.solve_pgo(graph, **pgo_kw), n=5,
                            warmup=1) / 1e3
-    phase("loop_cpu_vs_gpu", keyframes=int(len(kfs)),
+    phase("loop_cpu_vs_gpu", draw=draw_name(), keyframes=int(len(kfs)),
           vertices=int(graph.poses.shape[0]),
           edges=int(graph.edge_i.shape[0]),
           loops_cpu=lcc.n_loops_closed, loops_gpu=lcg.n_loops_closed,
@@ -1794,33 +1885,6 @@ class CapturePose:
 
     def __exit__(self, *exc):
         self.module.pose_refine_fused = self.inner
-
-
-def watch_landings(system) -> dict:
-    """Wraps ``system.process_frame`` and its IMU solver's ``update_map``
-    to note where the stages land: the frame at which the monocular
-    initialization made its two keyframes, and the newest keyframe's frame
-    when the gyro stage and the gravity / scale stage finished."""
-    landed = dict(mono_init=None, gyro=None, gravity=None)
-    sol, smap = system.imu_solver, system.map
-    inner_pf, inner_um = system.process_frame, sol.update_map
-
-    def process_frame(frame):
-        out = inner_pf(frame)
-        if landed["mono_init"] is None and smap.n_keyframes >= 2:
-            landed["mono_init"] = int(frame.frame_id)
-        return out
-
-    def update_map():
-        inner_um()
-        newest = int(smap.kf_frame_id[smap.valid_keyframes()].max())
-        if landed["gyro"] is None and sol.gyro_initialized:
-            landed["gyro"] = newest
-        if landed["gravity"] is None and sol.gravity_initialized:
-            landed["gravity"] = newest
-
-    system.process_frame, sol.update_map = process_frame, update_map
-    return landed
 
 
 def vi_summary(system) -> dict:
@@ -1866,7 +1930,20 @@ def mono_vi_lane_phase(dev) -> dict:
         eager = program_probes(stack, ("solve_scale_gravity",
                                        "knn2_ratio_match", "_gather_points"),
                                EAGER_SITES)
-        landed = watch_landings(system)
+        # each initialization attempt's two-view geometry, for
+        # two_view_phase
+        two_view = []
+        stack.enter_context(Probe(MI, "essential_ransac", after=lambda a, k:
+                                  two_view.append(dict(essential=(a, k)))))
+        for name in ("homography_ransac", "recover_pose_from_essential"):
+            stack.enter_context(Probe(
+                MI, name, after=lambda a, k, name=name:
+                two_view[-1].__setitem__(name, (a, k))))
+        # float64 draws, as the JAX reference's (it runs with x64 on); the
+        # trace holds the landings and each keyframe cycle
+        stack.enter_context(prng.x64(True))
+        draw = draw_name()
+        trace = stack.enter_context(LT.LaneTrace(system, MI, LC))
         g0 = graph_counts()
         PF.LAUNCHES = 0
         t0 = time.perf_counter()
@@ -1882,6 +1959,7 @@ def mono_vi_lane_phase(dev) -> dict:
     with graphs.disabled(), CapturePose(WS, lambda: True) as window:
         prog(*a, **k)
     before = vi_summary(system)
+    trace.summary("run", True, draw)
     final_probes = [Probe(VIS.ImuStateSolver, "_solve_chain"),
                     Probe(GBA.GlobalBA, "full_ba")]
     with contextlib.ExitStack() as stack:
@@ -1903,11 +1981,16 @@ def mono_vi_lane_phase(dev) -> dict:
         finalize_launches = PF.LAUNCHES - n0
     g_fin = graph_delta(g1)
     after = vi_summary(system)
+    trace.summary("final", True, draw)
     tracked = before["tracked"]
     phase("mono_vi_lane", frames=len(frames), window=VP.WINDOW, **before,
-          landed=landed, chain_restarts=runner.n_chain_restarts,
+          landed=trace.trace["landed"], draw=draw,
+          mono_init_trace=trace.trace["attempts"],
+          trace_parting=trace_parting("mono_vi", trace.trace),
+          chain_restarts=runner.n_chain_restarts,
           device_calls=runner.n_device_calls, depth=runner.depth,
-          graphs=g, wall_s=wall, fps=tracked / wall, finalize_s=finalize_s,
+          graphs=g, wall_s=wall, fps=tracked / wall, trace_s=trace.seconds,
+          wall_s_without_trace=wall - trace.seconds, finalize_s=finalize_s,
           final={k: after[k] for k in ("keyframes", "points", "sim3_ate_m",
                                        "align_scale", "bg_err", "stage")},
           pose_launches=dict(tracking=run_launches,
@@ -1928,16 +2011,25 @@ def mono_vi_lane_phase(dev) -> dict:
     check(before["bg_err"] < 5e-3 and after["bg_err"] < 5e-3,
           f"gyro bias off by {before['bg_err']}, {after['bg_err']} after "
           "finalize")
-    check(abs(tracked - J["tracked"]) <= 0.02 * J["tracked"],
+    check(tracked == J["tracked"],
           f"mono-VI lane tracked {tracked}, the JAX run {J['tracked']}")
-    check(abs(before["keyframes"] - J["keyframes"]) <= 0.15 * J["keyframes"],
-          f"mono-VI lane {before['keyframes']} keyframes, the JAX run "
-          f"{J['keyframes']}")
+    check(before["keyframes"] == J["keyframes"]
+          and after["keyframes"] == J["keyframes_final"],
+          f"mono-VI lane {before['keyframes']} / {after['keyframes']} "
+          f"keyframes, the JAX run {J['keyframes']} / "
+          f"{J['keyframes_final']}")
+    check(trace.trace["landed"] == J["landed"],
+          f"mono-VI lane landed {trace.trace['landed']}, the JAX run "
+          f"{J['landed']}")
+    check(abs(before["points"] - J["points"])
+          <= MONO_VI_POINTS_RTOL * J["points"],
+          f"mono-VI lane {before['points']} points, the JAX run "
+          f"{J['points']}")
     for r, ate_ref in ((before, J["sim3_ate_m"]),
                        (after, J["sim3_ate_final_m"])):
         check(abs(r["align_scale"] - 1.0) < 0.05,
               f"mono-VI lane alignment scale {r['align_scale']}")
-        check(r["sim3_ate_m"] <= MONO_VI_ATE_FACTOR * ate_ref,
+        check(abs(r["sim3_ate_m"] - ate_ref) <= MONO_VI_ATE_RTOL * ate_ref,
               f"mono-VI lane Sim3 ATE {r['sim3_ate_m']} m, the JAX run "
               f"{ate_ref} m")
     check(before["map_transforms"] >= 1
@@ -1959,11 +2051,59 @@ def mono_vi_lane_phase(dev) -> dict:
     check_programs("mono_vi_lane finalize", g_fin, probes_fin,
                    required=("imu_chain_solve", "gba_full_ba",
                              "gba_outliers"))
+    two_view_phase(dev, two_view)
     return dict(launches=run_launches + finalize_launches,
                 coarse_args=window.last[(1, 3)],
                 fine_args=window.last[(2, 2)],
                 realign_args=realign_kernel.args,
                 kept={n: k.kept() for n, k in keep.items()})
+
+
+def two_view_phase(dev, attempts: list) -> None:
+    """The mono-VI lane's initialization attempts' two-view geometry again,
+    on the host, where the initializer runs it, and on the card: the
+    points and the mask uploaded, the essential RANSAC, then the homography
+    RANSAC and the pose recovery where the lane reached them, each count
+    and the pose read back.  Host seconds of each attempt (the card's after
+    one untimed pass that loads its libraries) and the inlier counts of
+    each; printed, not gated (the batched float32 ``eigh`` of the 8-point
+    normal matrices is ill-conditioned: the card's scores its hypotheses
+    otherwise; PERF.md section 6)."""
+
+    def run(attempt, d):
+        uploaded = {}
+
+        def on(x):
+            if not isinstance(x, torch.Tensor):
+                return x
+            if id(x) not in uploaded:
+                uploaded[id(x)] = x.to(d)
+            return uploaded[id(x)]
+
+        a, k = attempt["essential"]
+        t0 = time.perf_counter()
+        E, inl, n_e = MI.essential_ransac(*map(on, a), **k)
+        counts = [int(n_e), None]
+        if "homography_ransac" in attempt:
+            a, k = attempt["homography_ransac"]
+            counts[1] = int(MI.homography_ransac(*map(on, a), **k)[2])
+        if "recover_pose_from_essential" in attempt:
+            a, k = attempt["recover_pose_from_essential"]
+            [x.cpu() for x in MI.recover_pose_from_essential(
+                E, on(a[1]), on(a[2]), inl, **k)]
+        return time.perf_counter() - t0, counts
+
+    rows = []
+    with prng.x64(True):
+        run(attempts[0], dev)
+        for attempt in attempts:
+            (host_s, host_n), (card_s, card_n) = (run(attempt, "cpu"),
+                                                  run(attempt, dev))
+            rows.append(dict(host_s=host_s, card_s=card_s,
+                             inliers_host=host_n, inliers_card=card_n))
+    phase("mono_init_two_view", draw="float64", attempts=rows,
+          host_s=sum(r["host_s"] for r in rows),
+          card_s=sum(r["card_s"] for r in rows), card=card_line())
 
 
 def _wall_ms(fn, sync: bool, n: int = 5) -> float:
@@ -2030,31 +2170,28 @@ def vi_solvers_phase(dev) -> None:
 
 
 def mono_vi_cpu_gpu_phase(dev) -> None:
-    """The small mono-VI configuration on the CPU and on the card, both
-    drawing their RANSAC hypotheses from one seeded CPU generator."""
-    from snakeslam_tpu_torch.ops.twoview import draw_samples
-
+    """The small mono-VI configuration on the CPU and on the card, each
+    drawing its own RANSAC hypotheses (float64, as the small trace's)."""
     out = {}
     for d in ("cpu", dev):
         system, frames = VP.build_lane(
             d, **dict(VP.SMALL, n_frames=MONO_VI_SMALL_FRAMES))
-        gen = torch.Generator().manual_seed(system.s.random_seed)
-        system.tracker.mono_initializer.sample_fn = (
-            lambda m, n, k, gen=gen, d=d:
-            draw_samples(m.cpu(), n, k, gen).to(d))
-        landed = watch_landings(system)
         runner = WindowedRunner(system, window=VP.SMALL_WINDOW)
         # the initializer's host seconds with the libraries warm (the
         # mono-VI lane before this phase paid their start-up)
-        with Probe(MI.MonoInitializer, "try_initialize") as init:
+        with Probe(MI.MonoInitializer, "try_initialize") as init, \
+                prng.x64(True), LT.LaneTrace(system, MI, LC) as trace:
             t0 = time.perf_counter()
             runner.run(frames)
             if d != "cpu":
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        out[str(d)] = (system, landed, runner, wall, init.seconds)
-    (sc, lc, rc, wall_c, init_c), (sg, lg, rg, wall_g, init_g) = (
-        out["cpu"], out[str(dev)])
+            trace.summary("run", True, draw_name())
+        out[str(d)] = (system, trace.trace["landed"], runner, wall,
+                       init.seconds, trace.trace, trace.seconds)
+    ((sc, lc, rc, wall_c, init_c, tc, trace_c),
+     (sg, lg, rg, wall_g, init_g, tg, trace_g)) = out["cpu"], out[str(dev)]
+    ref = LT.load()
     a, b = vi_summary(sc), vi_summary(sg)
 
     def centres(system):
@@ -2070,8 +2207,16 @@ def mono_vi_cpu_gpu_phase(dev) -> None:
           landed_gpu=lg, keyframe_frames_cpu=sorted(cc),
           keyframe_frames_gpu=sorted(cg), max_centre_diff_m=diff,
           bg_diff=d_bg, wall_s_cpu=wall_c, wall_s_gpu=wall_g,
+          trace_s_cpu=trace_c, trace_s_gpu=trace_g,
           mono_init_s_cpu=init_c, mono_init_s_gpu=init_g,
-          windows_cpu=rc.n_device_calls, windows_gpu=rg.n_device_calls)
+          windows_cpu=rc.n_device_calls, windows_gpu=rg.n_device_calls,
+          draw="float64", mono_init_gpu=tg["attempts"],
+          trace_parting=dict(
+              cpu=LT.first_parting(tg, tc),
+              committed_port_cpu=LT.first_parting(
+                  tg, ref["port_cpu"]["mono_vi_small"]),
+              committed_jax=LT.first_parting(
+                  tg, ref["jax"]["mono_vi_small"])))
     check(a["vi_initialized"] and b["vi_initialized"],
           "mono-VI CPU vs GPU: a run never initialized its IMU state")
     check(lc == lg, f"stages landed at {lc} on the CPU, {lg} on the card")
@@ -2222,7 +2367,7 @@ def cli_tum_phase(dev, lane, tmp: Path) -> dict:
     J, O = JAX_CLI, JAX_CLI_OWN_ORB
     shown = {k: v for k, v in r.items()
              if k not in ("system", "realign_args", "kept")}
-    phase("cli_tum", frames=CLI_FRAMES, **shown,
+    phase("cli_tum", draw=draw_name(), frames=CLI_FRAMES, **shown,
           memory=memory(), jax_cpu=J,
           jax_cpu_own_orb=O, ate_ratio=r["ate_m"] / J["ate_m"],
           ate_ratio_own_orb=r["ate_m"] / O["ate_m"])
@@ -2314,7 +2459,8 @@ def cli_cpu_gpu_phase(dev, lane, tmp: Path, sync: dict, cpu_run) -> None:
         diff[name] = float(np.linalg.norm(pc - pg, axis=1).max())
     ate, _ = TF.ate_against_groundtruth(out / "trajectory_frames_ba.tum",
                                         lane["root"] / "groundtruth.txt")
-    phase("cli_cpu_vs_gpu", frames=CLI_FRAMES, orb_frames=sorted(
+    phase("cli_cpu_vs_gpu", draw=draw_name(), frames=CLI_FRAMES,
+          orb_frames=sorted(
               lane["grays"]), cpu=cpu, gpu=card, max_centre_diff_m=diff,
           ate_m_cpu=ate, ate_m_gpu=sync["ate_m"], waited_s=waited)
     check(cpu == card, f"CLI lane on the CPU {cpu}, on the card {card}")
@@ -2370,7 +2516,7 @@ def cli_tum_async_phase(dev, lane, tmp: Path, sync: dict) -> None:
                 if id(e) not in before and e.thread != main]
     shown = {k: v for k, v in r.items()
              if k not in ("system", "realign_args")}
-    phase("cli_tum_async", frames=CLI_FRAMES, **shown,
+    phase("cli_tum_async", draw=draw_name(), frames=CLI_FRAMES, **shown,
           lba_graphs_captured_on_workers=len(worker),
           lba_replays_on_workers=sum(e.replays for e in worker),
           orb_graphs_captured_on_producer=len(producer),
@@ -2626,6 +2772,8 @@ def main() -> int:
     phase("build", seconds=cuda_build.build(
         PF.SOURCE, OK.FAST_SOURCE, OK.PATCH_SOURCE, force=True))
     if only is not None:
+        if "prng" in only:
+            prng_phase(dev)
         if "loop" in only or "multichip" in only:
             loop = loop_lane_phase(dev)
         if "loop" in only:
@@ -2657,6 +2805,7 @@ def main() -> int:
     lane = render_pixels_lane()
     fast = fast_phase(dev, lane)
     patch = patch_phase(dev)
+    prng_phase(dev)
     smooth_launches, smooth, kept = slice_phase(dev)
     kf_cycle_phase(smooth)
     pix = pixels_phase(dev, lane)

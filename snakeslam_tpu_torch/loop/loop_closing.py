@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from snakeslam_tpu_torch.core import lie
+from snakeslam_tpu_torch.core import lie, prng
 from snakeslam_tpu_torch.core.camera import Pinhole
 from snakeslam_tpu_torch.core.pyramid import ScalePyramid
 from snakeslam_tpu_torch.loop.keyframe_database import KeyframeDatabase
@@ -97,8 +97,7 @@ class LoopClosing:
         self.prev_candidates: set[int] = set()
         self.consistency_count = 0
         self.n_loops_closed = 0
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(settings.random_seed + 7)
+        self.key = prng.PRNGKey(settings.random_seed + 7)
         self._searcher = None
         dev = self.device
         self.cam = Pinhole.create(settings.fx, settings.fy, settings.cx,
@@ -210,16 +209,25 @@ class LoopClosing:
             return None
         pts_new, pts_old = pairs  # current-side / loop-side point ids
         dev = self.device
-        npairs = len(pts_new)
+        self.key, sub = prng.split(self.key)
         scene_scale = max(float(smap.kf_median_depth[kf]), 1.0)
+        # padded to a multiple of 256 pairs, as the JAX package pads them:
+        # the hypotheses are drawn over the padded shape
+        npairs = len(pts_new)
+        pad = -(-npairs // 256) * 256
+        src = np.zeros((pad, 3), dtype=np.float32)
+        src[:npairs] = smap.pt_pos[pts_new]
+        dst = np.zeros((pad, 3), dtype=np.float32)
+        dst[:npairs] = smap.pt_pos[pts_old]
+        mask = upload(np.arange(pad) < npairs, dev)
         s, R, t, inl, n = sim3_ransac(
-            upload(smap.pt_pos[pts_new].astype(np.float32), dev),
-            upload(smap.pt_pos[pts_old].astype(np.float32), dev),
-            torch.ones(npairs, dtype=torch.bool, device=dev), self.generator,
+            upload(src, dev), upload(dst, dev), mask,
+            prng.sample_without_replacement(sub, mask, 128, 3),
             threshold=0.05 * scene_scale, with_scale=self.use_scale)
         s, R, t, inl, n = HostCopy([s, R, t, inl, n]).wait()   # one copy
         if int(n) < MIN_SIM3_INLIERS:
             return None
+        inl = inl[:npairs]
         return self._verify_sim3(
             kf, cand, float(s), R.astype(np.float64), t.astype(np.float64),
             (pts_new[inl], pts_old[inl]))

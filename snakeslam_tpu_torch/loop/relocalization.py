@@ -3,8 +3,9 @@
 Counterpart of ``snakeslam_tpu/loop/relocalization.py`` (the reference's
 try_localize path: keyframe-database candidates, descriptor matching, PnP
 RANSAC, robust pose refinement).  Host orchestration; the matching and the
-PnP run on the system's device, the RANSAC drawing from a generator seeded
-``random_seed + 13``.
+PnP run on the system's device, the RANSAC drawing from a threefry key
+seeded ``random_seed + 13`` and split once per candidate that reaches it,
+as the JAX relocalizer draws (``core/prng.py``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from snakeslam_tpu_torch.core import prng
 from snakeslam_tpu_torch.core.camera import Pinhole
 from snakeslam_tpu_torch.loop.keyframe_database import KeyframeDatabase
 from snakeslam_tpu_torch.map.slam_map import FrameData, SlamMap
@@ -34,8 +36,7 @@ class Relocalizer:
                                   settings.cy, device=self.device)
         self.bf = torch.tensor(settings.bf, dtype=torch.float32,
                                device=self.device)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(settings.random_seed + 13)
+        self.key = prng.PRNGKey(settings.random_seed + 13)
 
     def try_relocalize(self, frame: FrameData) -> bool:
         """On success fills frame.pose_cw + frame.matches and returns True."""
@@ -59,8 +60,9 @@ class Relocalizer:
             if sel.sum() < MIN_RELOC_INLIERS:
                 continue
             obs_pts = smap.pt_pos[pts[idx[sel]]]
+            self.key, sub = prng.split(self.key)
             n0, T, inlier, n_inl = pnp_refine_np(
-                obs_pts, frame.uv[sel], self.cam, self.bf, self.generator,
+                obs_pts, frame.uv[sel], self.cam, self.bf, sub,
                 n_hypotheses=512)
             if n0 < MIN_RELOC_INLIERS // 2 or n_inl < MIN_RELOC_INLIERS:
                 continue

@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from snakeslam_tpu_torch.core import lie
+from snakeslam_tpu_torch.core import lie, prng
 from snakeslam_tpu_torch.core.camera import Pinhole
 from snakeslam_tpu_torch.ops.linalg import solve6x6_psd
 
@@ -195,25 +195,20 @@ def pnp_ransac(
     uv: torch.Tensor,
     mask: torch.Tensor,
     cam: Pinhole,
-    generator: torch.Generator,
+    key,
     n_hypotheses: int = 256,
     sample_size: int = 6,
     inlier_threshold_px: float = 4.0,
     min_depth: float = 1e-3,
 ):
     """Batched RANSAC PnP: 6-point DLT hypotheses drawn without
-    replacement from the valid set (Gumbel top-k), scored against all
-    points.  ``generator`` lives on the tensors' device.
+    replacement from the valid set, from ``key`` as the JAX function draws
+    them, scored against all points.
 
     Returns (best_T, inlier_mask, n_inliers)."""
-    M = points.shape[0]
     bearings = cam.unproject_pixels(uv)
-    logits = torch.where(mask, 0.0, float("-inf")).to(points.dtype)
-    uni = torch.rand((n_hypotheses, M), generator=generator,
-                     device=points.device, dtype=points.dtype)
-    uni = uni * (1.0 - 1e-9) + 1e-9
-    gumbel = -torch.log(-torch.log(uni))
-    _, sample_idx = torch.topk(logits[None, :] + gumbel, sample_size, dim=-1)
+    sample_idx = prng.sample_without_replacement(key, mask, n_hypotheses,
+                                                 sample_size)
     Ts = _dlt_pnp(points[sample_idx], bearings[sample_idx])   # (H, 4, 4)
 
     pc = torch.einsum("hij,mj->hmi", Ts[:, :3, :3], points) \
@@ -229,18 +224,25 @@ def pnp_ransac(
     return Ts[best], inl[best], scores[best]
 
 
-def pnp_refine_np(obs_pts, obs_uv, cam: Pinhole, bf, generator,
-                  n_hypotheses: int = 256):
+def pnp_refine_np(obs_pts, obs_uv, cam: Pinhole, bf, key,
+                  n_hypotheses: int = 256, bucket: int = 256):
     """Host front door: PnP RANSAC + robust refine of n >= 6 host
-    correspondences on the camera's device.
+    correspondences on the camera's device, padded to a multiple of
+    ``bucket`` rows as the JAX function pads them (masked rows are inert in
+    both solvers; the draw's shape is the padded one).
 
     Returns (n0, T (4, 4) tensor, inlier (n,) bool np, n_inl)."""
     dev = cam.fx.device
-    p = len(obs_pts)
-    pts_t = torch.from_numpy(np.asarray(obs_pts, dtype=np.float32)).to(dev)
-    uv_t = torch.from_numpy(np.asarray(obs_uv, dtype=np.float32)).to(dev)
-    mask = torch.ones(p, dtype=torch.bool, device=dev)
-    T0, _, n0 = pnp_ransac(pts_t, uv_t, mask, cam, generator,
+    n = len(obs_pts)
+    p = -(-max(n, 1) // bucket) * bucket
+    pts = np.zeros((p, 3), dtype=np.float32)
+    pts[:n] = obs_pts
+    uv = np.zeros((p, 2), dtype=np.float32)
+    uv[:n] = obs_uv
+    pts_t = torch.from_numpy(pts).to(dev)
+    uv_t = torch.from_numpy(uv).to(dev)
+    mask = torch.from_numpy(np.arange(p) < n).to(dev)
+    T0, _, n0 = pnp_ransac(pts_t, uv_t, mask, cam, key,
                            n_hypotheses=n_hypotheses)
     obs = PoseObs(
         points=pts_t, uv=uv_t,
@@ -248,4 +250,4 @@ def pnp_refine_np(obs_pts, obs_uv, cam: Pinhole, bf, generator,
         weight=torch.ones(p, dtype=torch.float32, device=dev), mask=mask,
     )
     T, inlier, n_inl = robust_pose_refine(T0, obs, cam, bf)
-    return int(n0), T, inlier.cpu().numpy(), int(n_inl)
+    return int(n0), T, inlier.cpu().numpy()[:n], int(n_inl)

@@ -2,10 +2,11 @@
 
 Counterpart of ``snakeslam_tpu/ops/sim3_solver.py`` (the reference's
 RegistrationProjectRANSAC in loop-closure verification): batched minimal
-Umeyama hypotheses over matched map-point pairs, drawn without replacement
-by Gumbel top-3 from an explicit ``torch.Generator``, scored by 3D
-consistency, then polished twice on the inlier set.  Nothing in here reads
-a device value on the host: the caller fetches the result in one copy.
+Umeyama hypotheses over matched map-point pairs, their sample indices
+drawn by the caller (``core/prng.py``: as the JAX function draws them),
+scored by 3D consistency, then polished twice on the inlier set.  Nothing
+in here reads a device value on the host: the caller fetches the result in
+one copy.
 """
 
 from __future__ import annotations
@@ -50,22 +51,13 @@ def sim3_ransac(
     src: torch.Tensor,          # (N, 3) points in the source frame
     dst: torch.Tensor,          # (N, 3) corresponding points in the target
     mask: torch.Tensor,         # (N,) bool
-    generator: torch.Generator,
-    n_hypotheses: int = 128,
+    sample_idx: torch.Tensor,   # (H, 3) hypotheses' pairs, on the device
     threshold: float = 0.1,     # 3D consistency threshold (target units)
     with_scale: bool = True,
 ):
     """Returns (s, R, t, inlier_mask, n_inliers) with dst ~ s R src + t, all
-    device tensors.  ``generator`` lives on the tensors' device."""
-    N = src.shape[0]
-    logits = torch.where(mask, 0.0, float("-inf")).to(src.dtype)
-    uni = torch.rand((n_hypotheses, N), generator=generator,
-                     device=src.device, dtype=src.dtype)
-    uni = uni * (1.0 - 1e-9) + 1e-9
-    gumbel = -torch.log(-torch.log(uni))
-    _, sample_idx = torch.topk(logits[None, :] + gumbel, 3, dim=-1)
-
-    ones = torch.ones((n_hypotheses, 3), dtype=src.dtype, device=src.device)
+    device tensors."""
+    ones = torch.ones(sample_idx.shape, dtype=src.dtype, device=src.device)
     s_h, R_h, t_h = umeyama(src[sample_idx], dst[sample_idx], ones,
                             with_scale=with_scale)
     pred = s_h[:, None, None] * torch.einsum("hij,nj->hni", R_h, src) \

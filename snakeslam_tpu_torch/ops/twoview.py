@@ -4,22 +4,25 @@ pose recovery, and the epipolar distance helpers.
 Counterpart of ``snakeslam_tpu/ops/twoview.py`` (the reference's
 TwoViewReconstruction[EightPoint], HomographyRansac, EssentialMatrix and
 EpipolarDistanceSquared).  Hypotheses are solved as one batched
-eigen-decomposition; scoring is a dense (H, N) evaluation.  The random
-draws come from an explicit ``torch.Generator`` on the tensors' device, or
-the caller passes the hypotheses' sample indices.
+eigen-decomposition; scoring is a dense (H, N) evaluation.  The
+hypotheses are drawn from a threefry key as the JAX functions draw them
+(``core/prng.py``: the same indices on every device).
 
 The decompositions are library calls (``torch.linalg.eigh`` / ``svd`` /
-``det``): monocular initialization runs a handful of times a run and reads
-its inlier counts on the host between the stages.  Eigenvector and
-singular-vector signs are the library's, so ``E`` and ``H`` are defined up
-to sign.
+``det``).  Their float32 results differ between devices: on the card's
+batched eigensolver the 8-point normal matrices' smallest eigenvector
+rounds otherwise (with the same hypotheses and bit-equal normal matrices,
+249 of 256 hypotheses scored otherwise on the full-width mono-VI lane's
+first attempt), so monocular initialization runs these functions on the
+host (``tracking/mono_init.py``).  Eigenvector and singular-vector signs
+are the library's, so ``E`` and ``H`` are defined up to sign.
 """
 
 from __future__ import annotations
 
 import torch
 
-from snakeslam_tpu_torch.core import lie
+from snakeslam_tpu_torch.core import lie, prng
 from snakeslam_tpu_torch.ops.triangulation import triangulate_homogeneous
 
 
@@ -89,37 +92,23 @@ def decompose_essential(E: torch.Tensor) -> torch.Tensor:
         [lie.se3(R1, t), lie.se3(R1, -t), lie.se3(R2, t), lie.se3(R2, -t)])
 
 
-def draw_samples(mask: torch.Tensor, n_hypotheses: int, sample_size: int,
-                 generator: torch.Generator, dtype=torch.float32):
-    """(H, sample_size) indices drawn without replacement from the valid
-    set (Gumbel top-k); ``generator`` lives on the mask's device."""
-    logits = torch.where(mask, 0.0, float("-inf")).to(dtype)
-    uni = torch.rand((n_hypotheses, mask.shape[0]), generator=generator,
-                     device=mask.device, dtype=dtype)
-    uni = uni * (1.0 - 1e-9) + 1e-9
-    gumbel = -torch.log(-torch.log(uni))
-    return torch.topk(logits[None, :] + gumbel, sample_size, dim=-1).indices
-
-
 def essential_ransac(
     xn1: torch.Tensor,
     xn2: torch.Tensor,
     mask: torch.Tensor,
-    generator: torch.Generator | None = None,
+    key,
     n_hypotheses: int = 256,
     threshold: float = 1.5e-5,
-    sample_idx: torch.Tensor | None = None,
 ):
     """Batched 8-point RANSAC on normalized correspondences.
 
     threshold is a squared epipolar distance in normalized coords
     (1.5e-5 ~ (1.7px / 450px focal)^2, the usual mono-init gate).
-    ``sample_idx`` (H, 8) replaces the random draw.
+    The hypotheses are drawn from ``key`` over the valid entries of the
+    padded ``mask``.
 
     Returns (E_best, inlier_mask, n_inliers)."""
-    if sample_idx is None:
-        sample_idx = draw_samples(mask, n_hypotheses, 8, generator,
-                                  xn1.dtype)
+    sample_idx = prng.sample_without_replacement(key, mask, n_hypotheses, 8)
     Es = _eight_point(xn1[sample_idx], xn2[sample_idx])        # (H, 3, 3)
     d2 = epipolar_distance_squared(Es, xn1[None], xn2[None])
     inl = (d2 < threshold) & mask[None, :]
@@ -191,19 +180,16 @@ def homography_ransac(
     xn1: torch.Tensor,
     xn2: torch.Tensor,
     mask: torch.Tensor,
-    generator: torch.Generator | None = None,
+    key,
     n_hypotheses: int = 128,
     threshold: float = 2e-5,
-    sample_idx: torch.Tensor | None = None,
 ):
     """Batched 4-point homography RANSAC; returns (H, inlier_mask, count).
 
     Mono initialization is rejected when the scene is planar or the motion
-    rotation-only (a high homography-inlier ratio).  ``sample_idx`` (H, 4)
-    replaces the random draw."""
-    if sample_idx is None:
-        sample_idx = draw_samples(mask, n_hypotheses, 4, generator,
-                                  xn1.dtype)
+    rotation-only (a high homography-inlier ratio).  The hypotheses are
+    drawn from ``key``."""
+    sample_idx = prng.sample_without_replacement(key, mask, n_hypotheses, 4)
     Hs = _dlt_homography(xn1[sample_idx], xn2[sample_idx])     # (H, 3, 3)
     h2 = torch.cat([xn2, torch.ones_like(xn2[:, :1])], dim=1)  # (N, 3)
     p = h2[None] @ Hs.mT                                       # (H, N, 3)

@@ -11,8 +11,16 @@ median parallax angle, homography-inlier ratio for planar scenes
 ``target_scale = 3`` (:274, MonoInitializer.h:154) before creating the
 first two keyframes and their map points (:278-393).
 
-The RANSACs' hypotheses come from a ``torch.Generator`` seeded with the
-settings' ``random_seed`` on the tracker's device.
+The RANSACs' hypotheses are the JAX package's: a threefry key seeded with
+the settings' ``random_seed``, split into (key, k1, k2) once per frame pair
+that reaches the RANSACs, k1 drawing the essential hypotheses and k2 the
+homography's (``core/prng.py``; the same draws on every device).  The
+two-view geometry (both RANSACs and the pose recovery) runs on the host
+whatever the system's device, so a card initializes exactly as the CPU
+does: the batched float32 ``eigh`` of the 8-point normal matrices is
+ill-conditioned, and the card's rounds otherwise, which moved inlier
+counts and the landing frame (PERF.md section 6).  The two-view BA runs
+on the system's device.
 """
 
 from __future__ import annotations
@@ -22,13 +30,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from snakeslam_tpu_torch.core import prng
 from snakeslam_tpu_torch.core.camera import Pinhole
 from snakeslam_tpu_torch.map.slam_map import FrameData
 from snakeslam_tpu_torch.ops import ba as BA
 from snakeslam_tpu_torch.ops.descriptors import unpack_bits_np
 from snakeslam_tpu_torch.ops.matching import knn2_ratio_match_np
 from snakeslam_tpu_torch.ops.twoview import (
-    draw_samples,
     essential_ransac,
     homography_ransac,
     recover_pose_from_essential,
@@ -84,13 +92,10 @@ class MonoInitializer:
         self.device = torch.device(device)
         self.cfg = MonoInitSettings.for_quality(quality)
         self.ref_frame: FrameData | None = None
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(seed)
+        self.key = prng.PRNGKey(seed)
         self.cam = Pinhole.create(settings.fx, settings.fy, settings.cx,
                                   settings.cy, device=self.device)
         self.n_attempts = 0      # frame pairs that reached the RANSACs
-        # test hook: (match mask, n, size) -> (n, size) sample indices
-        self.sample_fn = None
 
     # ------------------------------------------------------------------
 
@@ -166,32 +171,29 @@ class MonoInitializer:
         xn2p[:n_raw] = xn2
         xn1, xn2 = xn1p, xn2p
 
-        dev = self.device
         self.n_attempts += 1
-        mask = torch.from_numpy(np.arange(nb) < n_raw).to(dev)
-        xn1t = torch.from_numpy(xn1).to(dev)
-        xn2t = torch.from_numpy(xn2).to(dev)
-        draw = self.sample_fn or (
-            lambda m, n, k: draw_samples(m, n, k, self.gen))
+        self.key, k1, k2 = prng.split(self.key, 3)
+        mask = torch.from_numpy(np.arange(nb) < n_raw)
+        xn1t = torch.from_numpy(xn1)
+        xn2t = torch.from_numpy(xn2)
         E, e_inl, n_e = essential_ransac(
-            xn1t, xn2t, mask, threshold=th, sample_idx=draw(mask, 256, 8))
+            xn1t, xn2t, mask, k1, n_hypotheses=256, threshold=th)
         n_e = int(n_e)
         if n_e < cfg.min_inliers:
             return False
 
         # planar/rotation degeneracy: homography explains the motion
         _, _, n_h = homography_ransac(
-            xn1t, xn2t, mask, threshold=2.0 * th,
-            sample_idx=draw(mask, 128, 4))
+            xn1t, xn2t, mask, k2, n_hypotheses=128, threshold=2.0 * th)
         if int(n_h) > cfg.max_homography_ratio * n_e:
             return False
 
         # pose of frame2 relative to frame1 (frame1 = world origin):
         # recover_pose treats the first coordinate set's camera as the world
         T2, X, good = recover_pose_from_essential(E, xn1t, xn2t, e_inl)
-        T2 = T2.cpu().numpy().astype(np.float64)
-        X = X.cpu().numpy().astype(np.float64)
-        good = good.cpu().numpy()
+        T2 = T2.numpy().astype(np.float64)
+        X = X.numpy().astype(np.float64)
+        good = good.numpy()
         if good.sum() < cfg.min_inliers:
             return False
 

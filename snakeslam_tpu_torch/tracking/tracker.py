@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from snakeslam_tpu_torch.core import prng
 from snakeslam_tpu_torch.core.camera import Pinhole
 from snakeslam_tpu_torch.core.pyramid import ScalePyramid
 from snakeslam_tpu_torch.map.slam_map import (FrameData, SlamMap,
@@ -82,9 +83,9 @@ class Tracker:
         self.coarse_radius = _scalar(15.0 if self.is_mono else 10.0, dev)
         self.fine_th = _scalar(5.0 if self.is_mono else 4.0, dev)
         self.zero = _scalar(0.0, dev)
-        # brute-force recovery's RANSAC draws (seeded, on the device)
-        self._bf_gen = torch.Generator(device=dev)
-        self._bf_gen.manual_seed(settings.random_seed + 29)
+        # brute-force recovery's RANSAC key, made at its first use as the
+        # JAX tracker makes it
+        self._bf_key = None
 
         self.trajectory: list[FrameData] = []
         smap.on_transform.append(self._on_map_transform)
@@ -365,9 +366,11 @@ class Tracker:
             return None
         obs_pts = smap.pt_pos[pts[idx[sel]]]
         obs_uv = frame.uv[sel]
+        if self._bf_key is None:
+            self._bf_key = prng.PRNGKey(self.s.random_seed + 29)
+        self._bf_key, sub = prng.split(self._bf_key)
         n0, T, inlier, n_inl = pnp_refine_np(
-            obs_pts, obs_uv, self.cam, self.bf, self._bf_gen,
-            n_hypotheses=256)
+            obs_pts, obs_uv, self.cam, self.bf, sub, n_hypotheses=256)
         if n0 < min_inliers or n_inl < min_inliers:
             return None
         matched_sel = np.zeros(frame.n, dtype=bool)

@@ -24,8 +24,10 @@ without a host sync (``torch.cuda.set_sync_debug_mode("error")``): the
 local BA's solve is bit-identical on a rerun and within 1e-4 of the CPU;
 pair triangulation's integer outputs equal the CPU's.  So do the loop
 closure's pose-graph solve (float64, within 1e-8 of the CPU, bit-identical
-rerun) and Sim3 RANSAC; the pose kernel takes the realign's batch of 320
-problems in one launch.
+rerun) and Sim3 RANSAC, its threefry draw equal to the CPU's; the pose
+kernel takes the realign's batch of 320 problems in one launch.  A card
+system's monocular initializer initializes as the CPU's does (its
+two-view geometry on the host).
 
 The monocular visual-inertial path: the pose kernel on the mono problems a
 small mono-VI run hands it (a window's coarse and fine problem after the
@@ -540,10 +542,11 @@ def test_kernel_large_batch(cuda_device, iters):
 
 def test_pgo_and_sim3_ransac_on_the_card(cuda_device):
     """The loop closure's device solves: ``solve_pgo`` (float64) and
-    ``sim3_ransac`` with no host sync, the PGO bit-identical on a rerun
-    and within 1e-8 of the CPU; the RANSAC's polished Sim3 within 1e-4 of
+    ``sim3_ransac`` with no host sync (its threefry draw on the card
+    included), the PGO bit-identical on a rerun and within 1e-8 of the CPU;
+    the RANSAC's draw equal to the CPU's, its polished Sim3 within 1e-4 of
     the CPU's with the same inliers."""
-    from snakeslam_tpu_torch.core import lie
+    from snakeslam_tpu_torch.core import lie, prng
     from snakeslam_tpu_torch.ops import pgo as PGO
     from snakeslam_tpu_torch.ops import sim3_solver as SIM3
 
@@ -574,13 +577,14 @@ def test_pgo_and_sim3_ransac_on_the_card(cuda_device):
                     for x in (src, dst))
     mask = torch.ones(300, dtype=torch.bool)
     on_card = [t.to(cuda_device) for t in (src32, dst32, mask)]
-    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    key = prng.PRNGKey(7)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = PGO.solve_pgo(g_dev, iterations=25)
         again = PGO.solve_pgo(g_dev, iterations=25)
-        rs = SIM3.sim3_ransac(*on_card, gen, threshold=0.05,
+        idx = prng.sample_without_replacement(key, on_card[2], 128, 3)
+        rs = SIM3.sim3_ransac(*on_card, idx, threshold=0.05,
                               with_scale=False)
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -588,11 +592,51 @@ def test_pgo_and_sim3_ransac_on_the_card(cuda_device):
     ref = PGO.solve_pgo(graph, iterations=25)
     np.testing.assert_allclose(out[0].cpu().numpy(), ref[0].numpy(),
                                atol=1e-8)
-    rc = SIM3.sim3_ransac(src32, dst32, mask, torch.Generator().manual_seed(7),
-                          threshold=0.05, with_scale=False)
+    idx_cpu = prng.sample_without_replacement(key, mask, 128, 3)
+    assert torch.equal(idx.cpu(), idx_cpu)
+    rc = SIM3.sim3_ransac(src32, dst32, mask, idx_cpu, threshold=0.05,
+                          with_scale=False)
     assert torch.equal(rs[3].cpu(), rc[3]) and int(rs[4]) >= 200
     for a, b in zip(rs[:3], rc[:3]):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)
+
+
+def test_mono_init_on_a_card_system_initializes_as_the_cpu(cuda_device):
+    """A card system's monocular initializer runs its two-view geometry on
+    the host (the card's f32 eigensolver scored 249 of 256 hypotheses
+    otherwise on the mono-VI lane): on the small mono-VI twin's first
+    frames, the same attempts with the same inlier counts, the same landing
+    frame and the second keyframe's pose within 1e-4."""
+    from snakeslam_tpu_torch.core import prng
+    from snakeslam_tpu_torch.loop import loop_closing
+    from snakeslam_tpu_torch.tracking import mono_init
+    from snakeslam_tpu_torch.tracking.windowed import WindowedRunner
+    from snakeslam_tpu_torch.utils import lane_trace as LT
+    from snakeslam_tpu_torch.utils import vi_problems as VP
+
+    out, devices = {}, []
+    inner = mono_init.essential_ransac
+
+    def on_host(*a, **k):
+        devices.append(a[0].device.type)
+        return inner(*a, **k)
+
+    mono_init.essential_ransac = on_host
+    try:
+        for d in ("cpu", cuda_device):
+            system, frames = VP.build_lane(d, **dict(VP.SMALL, n_frames=6))
+            with prng.x64(True), LT.LaneTrace(system, mono_init,
+                                              loop_closing) as rec:
+                WindowedRunner(system, window=VP.SMALL_WINDOW).run(frames)
+            m = system.map
+            out[str(d)] = (rec.trace, m.kf_pose[m.valid_keyframes()].copy())
+    finally:
+        mono_init.essential_ransac = inner
+    (tc, pc), (tg, pg) = out["cpu"], out[str(cuda_device)]
+    assert tg["attempts"] == tc["attempts"] and tc["attempts"]
+    assert tg["landed"]["mono_init"] == tc["landed"]["mono_init"] is not None
+    assert set(devices) == {"cpu"}
+    assert pg.shape == pc.shape and np.abs(pg - pc).max() < 1e-4
 
 
 # ---------------------------------------------------------------------------

@@ -4,16 +4,19 @@
 frame is refused, too few matches restart from the current frame, low flow
 waits, and rotation-only motion never initializes although frame pairs
 reach the RANSACs (tests/test_e2e_mono.py::test_mono_rejects_pure_rotation).
-``try_initialize`` on tests/test_e2e_mono.py's orbit, both packages fed the
-same RANSAC hypotheses (the port's ``sample_fn`` hook draws them from the
-JAX initializer's key as it would): the same two keyframes, point count
+``try_initialize`` on tests/test_e2e_mono.py's orbit, each package drawing
+its own RANSAC hypotheses from its own key: every attempt splits the same
+keys, and the port's essential and homography draws equal the JAX
+initializer's index for index (float64 draws, as JAX's under the tests'
+x64; no hook); the same two keyframes, point count
 within 2%, the second keyframe's pose within 1e-4 after the two-view BA
 (float32 BA on both sides), median depth 3 within 1e-3 in both, the shared
 points within 1e-3.  ``LocalBA.run`` commits on an unchanged map and drops
 the whole commit when ``map.state`` changed since its snapshot.
 """
 
-import jax
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +24,7 @@ import torch
 from test_torch_twoview import _jax_samples
 
 from snakeslam_tpu.tracking import mono_init as JM
+from snakeslam_tpu_torch.core import prng
 from snakeslam_tpu_torch.map.slam_map import FrameData
 from snakeslam_tpu_torch.system.settings import InputType, Settings
 from snakeslam_tpu_torch.tracking import mono_init as TM
@@ -119,8 +123,9 @@ def test_pure_rotation_never_initializes():
 
 @pytest.fixture(scope="module")
 def initialized():
-    """Both packages' systems after mono initialization on the same frames
-    with the same hypotheses; the local BA after it is off in both."""
+    """Both packages' systems after mono initialization on the same frames,
+    each drawing its own hypotheses; the local BA after it is off in both.
+    The RANSACs' keys and masks are recorded on both sides."""
     from snakeslam_tpu.frontend.synthetic_source import (
         apply_world_to_settings as j_apply)
     from snakeslam_tpu.map.slam_map import FrameData as JFrame
@@ -145,34 +150,60 @@ def initialized():
     jsys.local_mapper.lba = None
     jinit = jsys.tracker.mono_initializer
     tinit = tsys.tracker.mono_initializer
+    draws = {"port": [], "jax": []}
 
-    def shared(mask, n, size):
-        # the JAX initializer splits its key into (key, k1, k2) when a
-        # frame pair reaches the RANSACs: k1 draws the essential samples,
-        # k2 the homography's
-        _, k1, k2 = jax.random.split(jinit.key, 3)
-        idx = _jax_samples(k1 if size == 8 else k2, mask.numpy(), n, size)
-        return torch.as_tensor(np.array(idx))
+    def recording(module, name, side, key_pos=3):
+        inner = getattr(module, name)
 
-    tinit.sample_fn = shared
+        def wrapped(*a, **k):
+            draws[side].append((name, np.asarray(a[key_pos]).copy(),
+                                np.asarray(a[2]), k["n_hypotheses"]))
+            return inner(*a, **k)
+        return wrapped
+
     frames = list(synthetic_frames(
         world, orbit_trajectory(30, radius=7.0, arc=0.9 * 30 / 50), s,
         noise_px=0.3))
     init_at = -1
-    for f in frames:
-        tsys.process_frame(f)              # before JAX advances its key
-        jsys.process_frame(frame_as(f, JFrame))
-        nt, nj = tsys.map.n_keyframes, jsys.map.n_keyframes
-        assert nt == nj, f"frame {f.frame_id}: {nt} vs {nj} keyframes"
-        if nt >= 2:
-            init_at = f.frame_id
-            break
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(prng.x64(True))
+        for mod, side in ((TM, "port"), (JM, "jax")):
+            for name in ("essential_ransac", "homography_ransac"):
+                stack.enter_context(pytest.MonkeyPatch.context()).setattr(
+                    mod, name, recording(mod, name, side))
+        for f in frames:
+            tsys.process_frame(f)
+            jsys.process_frame(frame_as(f, JFrame))
+            nt, nj = tsys.map.n_keyframes, jsys.map.n_keyframes
+            assert nt == nj, f"frame {f.frame_id}: {nt} vs {nj} keyframes"
+            np.testing.assert_array_equal(tinit.key, np.asarray(jinit.key))
+            if nt >= 2:
+                init_at = f.frame_id
+                break
     assert 0 < init_at < 25
-    return tsys, jsys, init_at
+    return tsys, jsys, init_at, draws, tinit.n_attempts
+
+
+def test_try_initialize_draws_the_jax_samples(initialized):
+    """Every RANSAC of every attempt: the same key, the same mask, and the
+    port's own draw equal to the JAX initializer's Gumbel top-k."""
+    _, _, _, draws, n_attempts = initialized
+    port, jax_ = draws["port"], draws["jax"]
+    assert n_attempts >= 1 and len(port) == len(jax_) >= n_attempts
+    size = dict(essential_ransac=8, homography_ransac=4)
+    for (name, key, mask, n), (jname, jkey, jmask, jn) in zip(port, jax_):
+        assert (name, n) == (jname, jn)
+        np.testing.assert_array_equal(key, jkey)
+        np.testing.assert_array_equal(mask, jmask)
+        with prng.x64(True):
+            got = prng.sample_without_replacement(
+                key, torch.as_tensor(mask), n, size[name])
+        np.testing.assert_array_equal(
+            got.numpy(), _jax_samples(jkey, mask, n, size[name]))
 
 
 def test_try_initialize_same_keyframes_and_pose(initialized):
-    tsys, jsys, init_at = initialized
+    tsys, jsys, init_at, _, _ = initialized
     tm, jm = tsys.map, jsys.map
     kt, kj = tm.valid_keyframes(), jm.valid_keyframes()
     assert len(kt) == len(kj) == 2
@@ -185,7 +216,7 @@ def test_try_initialize_same_keyframes_and_pose(initialized):
 
 
 def test_try_initialize_median_depth_and_points(initialized):
-    tsys, jsys, _ = initialized
+    tsys, jsys, _, _, _ = initialized
     tm, jm = tsys.map, jsys.map
     for m in (tm, jm):
         z = m.pt_pos[m.valid_points()][:, 2]    # camera 1 is the world
@@ -208,7 +239,7 @@ def test_local_ba_run_drops_on_changed_state(initialized):
     from snakeslam_tpu_torch.optim.lba import LocalBA
     from snakeslam_tpu_torch.utils.loop_problems import clone_map
 
-    tsys, _, _ = initialized
+    tsys, _, _, _, _ = initialized
     kf2 = int(tsys.map.valid_keyframes()[1])
 
     def fresh():

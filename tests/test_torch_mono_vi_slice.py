@@ -10,9 +10,10 @@ the run, gyro-predicted windows, then
 ``finalize(gba_iterations=2, vi_alternations=3)``.  The JAX runner is
 pinned to one window per fetch, the port's schedule.
 
-The two packages draw other RANSAC hypotheses, so their initial maps
-differ in their inlier sets and the runs are held by what they reach, not
-by trajectories.  Both: ``gyro_initialized`` and ``gravity_initialized``,
+Both packages draw the same RANSAC hypotheses (the port's threefry draws
+in float64, as JAX's under the tests' x64), but their float32 arithmetic
+differs in the last bits, so the runs are held by what they reach, not by
+trajectories (tests/test_torch_lane_trace.py holds the trace).  Both: ``gyro_initialized`` and ``gravity_initialized``,
 bg within 5e-3 of the truth, Sim3 alignment scale within 0.12 of 1 and
 Sim3 ATE under 0.1 m (tests/test_windowed_vi.py's conditions).  Port
 against JAX: tracked frames within 2, keyframes within 10% (at least 1),
@@ -27,6 +28,7 @@ import pytest
 
 from test_torch_slice import jax_one_window_per_fetch
 
+from snakeslam_tpu_torch.core import prng
 from snakeslam_tpu_torch.utils import vi_problems as VP
 
 N_FRAMES = 64
@@ -82,9 +84,10 @@ def runs(few_threads):
     kw = dict(VP.SMALL, n_frames=N_FRAMES)
     tsys, frames = VP.build_lane("cpu", **kw)
     trunner = WindowedRunner(tsys, window=VP.SMALL_WINDOW)
-    trunner.run(frames)
-    port = _summary(tsys, trunner)
-    port_final = _finalized(tsys)
+    with prng.x64(True):
+        trunner.run(frames)
+        port = _summary(tsys, trunner)
+        port_final = _finalized(tsys)
 
     js = JSettings()
     js.input_type = JIT.Mono

@@ -4,8 +4,12 @@ Tolerances: the Hamming matrix is exact (bit-equal to the JAX matrix and to
 the numpy oracle); the closed-form solves agree to rtol 1e-4 (f32, the
 Schur elimination amplifies by the block condition number); the robust
 pose refine agrees to pose atol 1e-4 with >= 99.9% identical inlier flags
-(f32 reductions summed in another order); RANSAC draws differ between the
-packages, so PnP is held against ground truth.
+(f32 reductions summed in another order); PnP is held against ground
+truth, and on the same key (no hook) the port's ``pnp_ransac`` draws the
+JAX function's sample indices and picks the same best hypothesis (pose
+within 1e-3, the same score), and ``pnp_refine_np`` pads to the same
+256-row bucket and lands within 1e-4 of the JAX pose with the same
+RANSAC score (float64 draws, as JAX's under the tests' x64).
 """
 
 import numpy as np
@@ -20,6 +24,7 @@ from snakeslam_tpu.ops import descriptors as jdesc
 from snakeslam_tpu.ops import linalg as jlin
 from snakeslam_tpu.ops import matching as jmatch
 from snakeslam_tpu.ops import pose_solver as jps
+from snakeslam_tpu_torch.core import prng
 from snakeslam_tpu_torch.core.camera import Pinhole
 from snakeslam_tpu_torch.ops import descriptors as tdesc
 from snakeslam_tpu_torch.ops import linalg as tlin
@@ -162,16 +167,15 @@ def test_robust_pose_refine_parity(prior, seed):
 def test_pnp_ransac_against_ground_truth():
     T0, obs, T_true = _pose_problem(21, n=300, outlier_frac=0.2,
                                     stereo_frac=0.0)
-    gen = torch.Generator().manual_seed(3)
     T, inl, n_inl = tps.pnp_ransac(
         torch.from_numpy(obs.points), torch.from_numpy(obs.uv),
-        torch.from_numpy(obs.mask), TCAM, gen)
+        torch.from_numpy(obs.mask), TCAM, prng.PRNGKey(3))
     assert int(n_inl) > 150
     err_t = np.linalg.norm(T.numpy()[:3, 3] - T_true[:3, 3])
     assert err_t < 0.2, err_t          # DLT hypothesis before the polish
     n0, Tr, inlier, n_r = tps.pnp_refine_np(
         obs.points[obs.mask], obs.uv[obs.mask], TCAM,
-        torch.tensor(BF, dtype=torch.float32), torch.Generator().manual_seed(4))
+        torch.tensor(BF, dtype=torch.float32), prng.PRNGKey(4))
     assert inlier.shape == (int(obs.mask.sum()),)
     err_t = np.linalg.norm(Tr.numpy()[:3, 3] - T_true[:3, 3])
     assert err_t < 2e-3, err_t
@@ -179,6 +183,38 @@ def test_pnp_ransac_against_ground_truth():
     _, Tj, _, _ = jps.pnp_refine_np(obs.points[obs.mask], obs.uv[obs.mask],
                                     JCAM, BF, jax.random.PRNGKey(0))
     assert np.linalg.norm(np.asarray(Tj)[:3, 3] - T_true[:3, 3]) < 2e-3
+
+
+def test_pnp_draws_and_best_hypothesis_match_jax():
+    T0, obs, T_true = _pose_problem(22, n=300, outlier_frac=0.2,
+                                    stereo_frac=0.0)
+    key = jax.random.PRNGKey(9)
+    args = [obs.points, obs.uv, obs.mask]
+    Tj, _, nj = jps.pnp_ransac(*map(jnp.asarray, args), JCAM, key)
+    with prng.x64(True):
+        Tt, _, nt = tps.pnp_ransac(*map(torch.from_numpy, args), TCAM,
+                                   np.asarray(key))
+        idx = prng.sample_without_replacement(
+            np.asarray(key), torch.from_numpy(obs.mask), 256, 6)
+    # the JAX function's draw (ops/pose_solver.py:245-250)
+    gumbel = -jnp.log(-jnp.log(jax.random.uniform(
+        key, (256, len(obs.mask)), minval=1e-9, maxval=1.0)))
+    jidx = jax.lax.top_k(jnp.where(jnp.asarray(obs.mask), 0.0, -jnp.inf)[None]
+                         + gumbel, 6)[1]
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    assert int(nt) == int(nj) > 150
+    np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), atol=1e-3)
+    # the padded front door: 300 pairs in a 512-row bucket on both sides
+    sel = obs.mask
+    with prng.x64(True):
+        n0, Tr, inlier, _ = tps.pnp_refine_np(
+            obs.points[sel], obs.uv[sel], TCAM,
+            torch.tensor(BF, dtype=torch.float32), np.asarray(key))
+    j0, Trj, jinlier, _ = jps.pnp_refine_np(obs.points[sel], obs.uv[sel],
+                                            JCAM, BF, key)
+    assert n0 == j0 and inlier.shape == jinlier.shape == (int(sel.sum()),)
+    np.testing.assert_allclose(Tr.numpy(), np.asarray(Trj), atol=1e-4)
+    assert (inlier == jinlier).mean() >= 0.99
 
 
 def test_knn2_ratio_match_parity():

@@ -4,9 +4,10 @@ the JAX package.
 Tolerances: Sim3 exp / log / inverse / adjoint in float64 within 1e-12,
 including angles and sigma below the branch cut-offs (1e-5); Umeyama with
 and without scale, on a general and a planar set, within 1e-10 (float64);
-``sim3_ransac`` with 30% outliers in float32 (the two packages draw other
-hypotheses, and every clean one polishes to the same answer): the polished
-s, R, t within 1e-4 and the same inlier set; ``solve_pgo`` SE3 and Sim3 on
+``sim3_ransac`` with 30% outliers in float32 on the same key, with no
+hook: the port draws the JAX function's sample indices (float64 draws, as
+JAX's under the tests' x64), picks the same best hypothesis (1e-4) and
+polishes it to s, R, t within 1e-4 with the same inlier set; ``solve_pgo`` SE3 and Sim3 on
 tests/test_pgo_bow.py's ring graphs in float64: poses within 1e-8, and
 reruns bit-identical.
 """
@@ -23,6 +24,7 @@ from snakeslam_tpu.core import lie as JL
 from snakeslam_tpu.ops import pgo as JP
 from snakeslam_tpu.ops import sim3_solver as JS
 from snakeslam_tpu_torch.core import lie as TL
+from snakeslam_tpu_torch.core import prng
 from snakeslam_tpu_torch.ops import pgo as TP
 from snakeslam_tpu_torch.ops import sim3_solver as TS
 from snakeslam_tpu_torch.ops.linalg import svd3x3
@@ -114,13 +116,42 @@ def test_sim3_ransac_with_outliers(rng, with_scale):
     src32, dst32 = src.astype(np.float32), dst.astype(np.float32)
     mask = np.ones(N, dtype=bool)
     mask[-5:] = False                    # masked pairs are never inliers
+    key = jax.random.PRNGKey(7)
     sj, Rj, tj, inl_j, nj = JS.sim3_ransac(
-        jnp.asarray(src32), jnp.asarray(dst32), jnp.asarray(mask),
-        jax.random.PRNGKey(7), threshold=0.05, with_scale=with_scale)
-    gen = torch.Generator().manual_seed(7)
+        jnp.asarray(src32), jnp.asarray(dst32), jnp.asarray(mask), key,
+        threshold=0.05, with_scale=with_scale)
+    with prng.x64(True):
+        idx = prng.sample_without_replacement(
+            np.asarray(key), torch.as_tensor(mask), 128, 3)
     st, Rt, tt, inl_t, nt = TS.sim3_ransac(
-        torch.as_tensor(src32), torch.as_tensor(dst32),
-        torch.as_tensor(mask), gen, threshold=0.05, with_scale=with_scale)
+        torch.as_tensor(src32), torch.as_tensor(dst32), torch.as_tensor(mask),
+        idx, threshold=0.05, with_scale=with_scale)
+    # the JAX function's draw (ops/sim3_solver.py:58-63)
+    gumbel = -jnp.log(-jnp.log(jax.random.uniform(key, (128, N), minval=1e-9,
+                                                  maxval=1.0)))
+    jidx = np.asarray(jax.lax.top_k(
+        jnp.where(jnp.asarray(mask), 0.0, -jnp.inf)[None] + gumbel, 3)[1])
+    np.testing.assert_array_equal(idx.numpy(), jidx)
+    # the same best hypothesis, as scored by each package
+    ones = torch.ones((128, 3))
+    sh, Rh, th = TS.umeyama(torch.as_tensor(src32)[idx],
+                            torch.as_tensor(dst32)[idx], ones,
+                            with_scale=with_scale)
+    err = torch.linalg.norm(
+        sh[:, None, None] * torch.einsum("hij,nj->hni", Rh,
+                                         torch.as_tensor(src32))
+        + th[:, None] - torch.as_tensor(dst32)[None], dim=-1)
+    best_t = int(torch.argmax(((err < 0.05) & torch.as_tensor(mask)).sum(1)))
+    sjh, Rjh, tjh = jax.vmap(lambda i: JS.umeyama_jax(
+        jnp.asarray(src32)[i], jnp.asarray(dst32)[i], jnp.ones(3, jnp.float32),
+        with_scale=with_scale))(jidx)
+    errj = jnp.linalg.norm(
+        sjh[:, None, None] * jnp.einsum("hij,nj->hni", Rjh, src32)
+        + tjh[:, None] - dst32[None], axis=-1)
+    best_j = int(jnp.argmax(((errj < 0.05) & jnp.asarray(mask)).sum(1)))
+    assert best_t == best_j
+    np.testing.assert_allclose(Rh[best_t].numpy(), np.asarray(Rjh[best_j]),
+                               atol=1e-4)
     assert st.dtype == torch.float32
     np.testing.assert_array_equal(inl_t.numpy(), np.asarray(inl_j))
     assert int(nt) == int(nj) >= 0.6 * N

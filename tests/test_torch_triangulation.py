@@ -24,6 +24,7 @@ from snakeslam_tpu.ops import triangulate_pairs as JTP
 from snakeslam_tpu.ops import triangulation as JTR
 from snakeslam_tpu.ops import twoview as JTV
 from snakeslam_tpu.ops.matching import FrameFeatures as JFF
+from snakeslam_tpu_torch.core import prng
 from snakeslam_tpu_torch.core.camera import Pinhole as TPinhole
 from snakeslam_tpu_torch.ops import depth_grid as TDG
 from snakeslam_tpu_torch.ops import triangulate_pairs as TTP
@@ -111,7 +112,7 @@ def test_essential_and_epipolar_distance_match_jax():
     mask = torch.arange(40) < 30
     E, inl, n = TTV.essential_ransac(
         torch.from_numpy(x1[0]), torch.from_numpy(x2[0]), mask,
-        torch.Generator().manual_seed(0), n_hypotheses=8)
+        prng.PRNGKey(0), n_hypotheses=8)
     assert E.shape == (3, 3) and int(n) == int(inl.sum())
     assert not bool(inl[30:].any())
 

@@ -6,9 +6,10 @@ matrices are compared up to sign and results by what they mean.
 Tolerances (float64 unless said): ``_eight_point`` (plain, weighted,
 batched) and ``_dlt_homography`` equal up to sign within 1e-8 after
 normalization; ``decompose_essential``: the same four poses as a set within
-1e-8; with the same hypotheses (``sample_idx`` drawn as the JAX functions
-draw them from their key) ``essential_ransac`` and ``homography_ransac``
-pick the same best hypothesis and agree on >= 99.5% of the inlier flags
+1e-8; on the same key, with no hook, ``essential_ransac`` and
+``homography_ransac`` draw exactly the JAX functions' sample indices
+(``core/prng.py``; the tests run JAX with x64 on, so both draw float64),
+pick the same best hypothesis (float64) and agree on >= 99.5% of the inlier flags
 with counts within 0.5%, in float64 and in float32, on
 tests/test_twoview.py's general (30% outliers) and planar scenes, and the
 polished E gives the same epipolar distances on the inliers (1e-9 in
@@ -18,7 +19,8 @@ itself is only determined to ~1e-3);
 within 1e-4 of their norm, ``good`` identical; with each package's own
 draws the recovered pose is within 2e-2 of the ground truth in both (the
 linear 8-point bound of tests/test_twoview.py) and within 1e-3 of each
-other; ``draw_samples`` draws distinct valid indices, reproducibly.
+other; ``prng.sample_without_replacement`` draws distinct valid indices,
+reproducibly.
 """
 
 import jax
@@ -30,7 +32,15 @@ import torch
 from test_twoview import _two_view_scene
 
 from snakeslam_tpu.ops import twoview as JT
+from snakeslam_tpu_torch.core import prng
 from snakeslam_tpu_torch.ops import twoview as TT
+
+
+@pytest.fixture(autouse=True)
+def _draw_as_jax_x64():
+    """The JAX package draws float64 under the tests' ``jax_enable_x64``."""
+    with prng.x64(True):
+        yield
 
 
 def _t(a, dtype=torch.float64):
@@ -51,7 +61,8 @@ def _unit_up_to_sign(A):
 
 
 def _jax_samples(key, mask, n_hypotheses, size):
-    """The draw of the JAX RANSACs (twoview.py:113-117, :213-217)."""
+    """The draw of the JAX RANSACs (twoview.py:113-117, :213-217), in the
+    default float of the running JAX configuration."""
     logits = jnp.where(jnp.asarray(mask), 0.0, -jnp.inf)
     gumbel = -jnp.log(-jnp.log(jax.random.uniform(
         key, (n_hypotheses, len(mask)), minval=1e-9, maxval=1.0)))
@@ -105,10 +116,25 @@ def test_essential_ransac_shared_samples(rng, dtype):
     Ej, inl_j, n_j = JT.essential_ransac(
         _j(xn1, jd), _j(xn2, jd), jnp.asarray(mask), key, n_hypotheses=256,
         threshold=2e-5)
-    idx = _jax_samples(key, mask, 256, 8)
+    # the port's own draw on the same key: no hook
     Et, inl_t, n_t = TT.essential_ransac(
-        _t(xn1, td), _t(xn2, td), torch.as_tensor(mask), threshold=2e-5,
-        sample_idx=torch.as_tensor(idx))
+        _t(xn1, td), _t(xn2, td), torch.as_tensor(mask), np.asarray(key),
+        n_hypotheses=256, threshold=2e-5)
+    idx = _jax_samples(key, mask, 256, 8)
+    np.testing.assert_array_equal(prng.sample_without_replacement(
+        np.asarray(key), torch.as_tensor(mask), 256, 8).numpy(), idx)
+    if dtype == "float64":
+        # the same best hypothesis before the polish (in float32 the two
+        # libraries' 8-point eigenvectors, and so the scores, differ)
+        d2_t = TT.epipolar_distance_squared(
+            TT._eight_point(_t(xn1)[idx], _t(xn2)[idx]), _t(xn1)[None],
+            _t(xn2)[None])
+        d2_j = jax.vmap(lambda E: JT.epipolar_distance_squared(
+            E, _j(xn1), _j(xn2)))(jax.vmap(
+                lambda i: JT._eight_point(_j(xn1)[i], _j(xn2)[i]))(idx))
+        assert int(torch.argmax(((d2_t < 2e-5) & torch.as_tensor(mask))
+                                .sum(1))) == \
+            int(jnp.argmax(((d2_j < 2e-5) & jnp.asarray(mask)).sum(1)))
     inl_j, inl_t = np.asarray(inl_j), inl_t.numpy()
     assert (inl_j == inl_t).mean() >= 0.995
     assert abs(int(n_t) - int(n_j)) <= max(1, 0.005 * int(n_j))
@@ -150,10 +176,9 @@ def test_own_draws_recover_ground_truth(rng):
     pts, T1, T2, xn1, xn2, outliers = _two_view_scene(
         rng, outlier_frac=0.3, noise=5e-4)
     mask = np.ones(len(pts), dtype=bool)
-    gen = torch.Generator().manual_seed(7)
     Et, inl_t, n_t = TT.essential_ransac(
-        _t(xn1), _t(xn2), torch.as_tensor(mask), gen, n_hypotheses=512,
-        threshold=2e-5)
+        _t(xn1), _t(xn2), torch.as_tensor(mask), prng.PRNGKey(7),
+        n_hypotheses=512, threshold=2e-5)
     T2t, _, good_t = TT.recover_pose_from_essential(Et, _t(xn1), _t(xn2),
                                                     inl_t)
     Ej, inl_j, n_j = JT.essential_ransac(
@@ -178,10 +203,12 @@ def test_homography_ransac_shared_samples(rng, planar):
     key = jax.random.PRNGKey(2)
     Hj, inl_j, n_j = JT.homography_ransac(_j(xn1), _j(xn2),
                                           jnp.asarray(mask), key)
-    idx = _jax_samples(key, mask, 128, 4)
+    # the port's own draw on the same key: no hook
     Ht, inl_t, n_t = TT.homography_ransac(
-        _t(xn1), _t(xn2), torch.as_tensor(mask),
-        sample_idx=torch.as_tensor(idx))
+        _t(xn1), _t(xn2), torch.as_tensor(mask), np.asarray(key))
+    idx = _jax_samples(key, mask, 128, 4)
+    np.testing.assert_array_equal(prng.sample_without_replacement(
+        np.asarray(key), torch.as_tensor(mask), 128, 4).numpy(), idx)
     assert (np.asarray(inl_j) == inl_t.numpy()).mean() >= 0.995
     assert abs(int(n_t) - int(n_j)) <= max(1, 0.005 * int(n_j))
     np.testing.assert_allclose(_unit_up_to_sign(Ht.numpy()),
@@ -195,10 +222,11 @@ def test_homography_ransac_shared_samples(rng, planar):
 def test_draw_samples_distinct_valid_reproducible():
     mask = torch.zeros(64, dtype=torch.bool)
     mask[5:40] = True
-    a = TT.draw_samples(mask, 100, 8, torch.Generator().manual_seed(3))
-    b = TT.draw_samples(mask, 100, 8, torch.Generator().manual_seed(3))
+    draw = prng.sample_without_replacement
+    a = draw(prng.PRNGKey(3), mask, 100, 8)
+    b = draw(prng.PRNGKey(3), mask, 100, 8)
     assert torch.equal(a, b) and a.shape == (100, 8)
     assert bool(mask[a].all())
     assert all(len(set(r.tolist())) == 8 for r in a)
-    c = TT.draw_samples(mask, 100, 8, torch.Generator().manual_seed(4))
+    c = draw(prng.PRNGKey(4), mask, 100, 8)
     assert not torch.equal(a, c)
