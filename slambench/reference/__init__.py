@@ -1,0 +1,2 @@
+"""The benchmark's plain reference: float64 PyTorch and numpy that imports
+nothing of the program."""
