@@ -25,8 +25,8 @@ same path:
   loop/      keyframe database, Sim3 loop closing, relocalization
   imu/       the decoupled visual-inertial state solver (gyro bias, gravity
              and scale, staged refinement, the final alternation)
-  system/    settings, stats, delayed queues, the async pipeline,
-             SlamSystem
+  system/    settings, the tracer (stats: spans and counters, off by
+             default), delayed queues, the async pipeline, SlamSystem
   utils/     synthetic and rendered worlds, the rendered TUM-RGBD sequence,
              synthetic IMU, seeded problems
              (pose, back-end, BA, loop, visual-inertial), conversion of

@@ -7,7 +7,9 @@ into the INI file), apply per-dataset presets and CLI overrides, run the
 system over the dataset on ``--device`` (default ``cuda``: the card; a run
 without one exits non-zero unless ``--device cpu`` is asked for), write
 TUM trajectories, a PLY / npz map snapshot and, where matplotlib is
-installed, a map plot, and print the statistics tables.
+installed, a map plot, and print the statistics tables: the tracer's
+spans of the run (``system/stats.py``: calls, mean and self ms per span
+name, and its counters) and the map's statistics.
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ def main(argv=None):
         return 2
 
     from snakeslam_tpu_torch.frontend.input import Input
+    from snakeslam_tpu_torch.system import stats as tracer
     from snakeslam_tpu_torch.system.settings import Settings
     from snakeslam_tpu_torch.system.slam import SlamSystem
     from snakeslam_tpu_torch.viewer.export import (FrameOverlayWriter,
@@ -94,8 +97,13 @@ def main(argv=None):
         system.frame_listeners.append(writer.on_frame)
     profile_cm = (_profiler(Path(settings.eval_dir) / "trace", device)
                   if args.profile else contextlib.nullcontext())
-    with profile_cm:
-        wall = system.run(iter(inp))
+    tracer.reset()
+    tracer.enable()
+    try:
+        with profile_cm:
+            wall = system.run(iter(inp))
+    finally:
+        tracer.disable()
 
     out_dir = Path(settings.eval_dir)
     system.write_trajectories(out_dir)
@@ -114,7 +122,7 @@ def main(argv=None):
           f"({n / max(wall, 1e-9):.1f} fps)")
     print(f"keyframes: {system.map.n_keyframes}  "
           f"points: {system.map.n_points}")
-    print(system.stats.table())
+    print(tracer.table())
     print(system.map_statistics())
     return 0
 

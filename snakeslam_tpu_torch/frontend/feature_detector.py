@@ -22,6 +22,7 @@ import torch
 from snakeslam_tpu_torch.map.slam_map import FrameData
 from snakeslam_tpu_torch.ops.descriptors import pack_bits_np
 from snakeslam_tpu_torch.ops.orb import extract_orb
+from snakeslam_tpu_torch.system import stats as tracer
 from snakeslam_tpu_torch.system.settings import Settings
 from snakeslam_tpu_torch.tracking.staging import HostCopy, upload
 from snakeslam_tpu_torch.utils import native
@@ -44,35 +45,36 @@ class FeatureDetector:
     def detect(self, image: np.ndarray, frame_id: int,
                timestamp: float) -> FrameData:
         """Run ORB on a grayscale image (H, W) uint8/float."""
-        path = self._cache_path(frame_id)
-        if path is not None:
-            z = native.read_features(path)
-            if z is not None:
-                return FrameData(
-                    frame_id=frame_id, timestamp=timestamp,
-                    uv=z["uv"], octave=z["octave"], angle=z["angle"],
-                    descriptors=z["descriptors"],
-                    right=np.full(len(z["uv"]), -1.0),
-                    depth=np.full(len(z["uv"]), -1.0),
-                )
-        feats = extract_orb(
-            upload(np.asarray(image, dtype=np.float32), self.device),
-            n_features=int(self.s.fd_features),
-            levels=int(self.s.fd_levels),
-            scale_factor=float(self.s.fd_scale_factor),
-            threshold=float(self.s.fd_ini_th_fast),
-        )
-        feats = HostCopy(feats).wait()
-        uv_all, _, octave_all, angle_all, bits_all, valid = feats
-        uv = uv_all[valid].astype(np.float64)
-        octave = octave_all[valid].astype(np.int32)
-        angle = angle_all[valid].astype(np.float32)
-        desc = pack_bits_np(bits_all[valid])
-        if path is not None:
-            native.write_features(path, uv, octave, angle, desc)
-        n = len(uv)
-        return FrameData(
-            frame_id=frame_id, timestamp=timestamp,
-            uv=uv, octave=octave, angle=angle, descriptors=desc,
-            right=np.full(n, -1.0), depth=np.full(n, -1.0),
-        )
+        with tracer.span("orb.detect", frame_id):
+            path = self._cache_path(frame_id)
+            if path is not None:
+                z = native.read_features(path)
+                if z is not None:
+                    return FrameData(
+                        frame_id=frame_id, timestamp=timestamp,
+                        uv=z["uv"], octave=z["octave"], angle=z["angle"],
+                        descriptors=z["descriptors"],
+                        right=np.full(len(z["uv"]), -1.0),
+                        depth=np.full(len(z["uv"]), -1.0),
+                    )
+            feats = extract_orb(
+                upload(np.asarray(image, dtype=np.float32), self.device),
+                n_features=int(self.s.fd_features),
+                levels=int(self.s.fd_levels),
+                scale_factor=float(self.s.fd_scale_factor),
+                threshold=float(self.s.fd_ini_th_fast),
+            )
+            feats = HostCopy(feats).wait()
+            uv_all, _, octave_all, angle_all, bits_all, valid = feats
+            uv = uv_all[valid].astype(np.float64)
+            octave = octave_all[valid].astype(np.int32)
+            angle = angle_all[valid].astype(np.float32)
+            desc = pack_bits_np(bits_all[valid])
+            if path is not None:
+                native.write_features(path, uv, octave, angle, desc)
+            n = len(uv)
+            return FrameData(
+                frame_id=frame_id, timestamp=timestamp,
+                uv=uv, octave=octave, angle=angle, descriptors=desc,
+                right=np.full(n, -1.0), depth=np.full(n, -1.0),
+            )

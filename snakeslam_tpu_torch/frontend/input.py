@@ -22,6 +22,7 @@ from snakeslam_tpu_torch.frontend.depth_processor import DepthProcessor
 from snakeslam_tpu_torch.frontend.feature_detector import FeatureDetector
 from snakeslam_tpu_torch.frontend.preprocess import Preprocess
 from snakeslam_tpu_torch.map.slam_map import FrameData
+from snakeslam_tpu_torch.system import stats as tracer
 from snakeslam_tpu_torch.system.settings import InputType, Settings
 
 
@@ -69,10 +70,11 @@ class Input:
         frame = self.detector.detect(raw.gray, raw.frame_id, raw.timestamp)
         self.preprocess.undistort_keypoints(frame)
         if raw.depth is not None:
-            depth = raw.depth
-            if self.depth_processor is not None:
-                depth = self.depth_processor.process(depth)
-            self.preprocess.depth_from_rgbd(frame, depth)
+            with tracer.span("input.depth", raw.frame_id):
+                depth = raw.depth
+                if self.depth_processor is not None:
+                    depth = self.depth_processor.process(depth)
+                self.preprocess.depth_from_rgbd(frame, depth)
         elif raw.right is not None and self.s.input_type == InputType.Stereo:
             right_frame = self.detector.detect(
                 raw.right, raw.frame_id + 10_000_000, raw.timestamp
@@ -105,7 +107,15 @@ class Input:
         t0_wall = time.perf_counter()
         native = None
         prev_ts = None
-        for raw in self.dataset:
+        it = iter(self.dataset)
+        while True:
+            # the dataset's step: the frame's files read and decoded
+            with tracer.span("input.decode") as sp:
+                raw = next(it, None)
+                if raw is not None:
+                    sp.set_frame(raw.frame_id)
+            if raw is None:
+                return
             if paced and rate > 0:
                 if t0_data is None:
                     t0_data = raw.timestamp

@@ -32,6 +32,7 @@ from snakeslam_tpu_torch.mapping.fusion import MapSearcher
 from snakeslam_tpu_torch.ops.depth_grid import keyframe_depth_grid
 from snakeslam_tpu_torch.ops.descriptors import hamming_np
 from snakeslam_tpu_torch.ops.triangulate_pairs import triangulate_pairs_batch
+from snakeslam_tpu_torch.system import stats as tracer
 from snakeslam_tpu_torch.system.settings import InputType, Settings
 from snakeslam_tpu_torch.tracking.staging import HostCopy, upload
 from snakeslam_tpu_torch.utils import graphs
@@ -102,26 +103,27 @@ class LocalMapper:
         """Allocate the keyframe and run the synchronous half; the deferred
         cycle runs now, or (defer=True) at flush_deferred() / when the
         windowed runner dispatches it, overlapping the tracking windows."""
-        if frame.frame_id - self._last_kf_frame_id < 1:
-            return -1
-        n_inl = int((frame.matches >= 0).sum())
-        if n_inl < 30:
-            return -1
-        kf = self.map.allocate_keyframe(frame)
-        self.map.kf_prev[kf] = prev_kf
-        if prev_kf >= 0:
-            self.map.kf_next[prev_kf] = kf
-        frame.is_keyframe = True
-        frame.ref_kf = kf
-        frame.rel_to_ref = np.eye(4)  # the frame IS the keyframe
-        frame.ref_frame_id = int(frame.frame_id)
-        self._last_kf_frame_id = frame.frame_id
-        self.process_sync(kf, frame)
-        if defer:
-            self._deferred.append((kf, frame))
-        else:
-            self.process_deferred(kf, frame)
-        return kf
+        with tracer.span("kf.insert"):
+            if frame.frame_id - self._last_kf_frame_id < 1:
+                return -1
+            n_inl = int((frame.matches >= 0).sum())
+            if n_inl < 30:
+                return -1
+            kf = self.map.allocate_keyframe(frame)
+            self.map.kf_prev[kf] = prev_kf
+            if prev_kf >= 0:
+                self.map.kf_next[prev_kf] = kf
+            frame.is_keyframe = True
+            frame.ref_kf = kf
+            frame.rel_to_ref = np.eye(4)  # the frame IS the keyframe
+            frame.ref_frame_id = int(frame.frame_id)
+            self._last_kf_frame_id = frame.frame_id
+            self.process_sync(kf, frame)
+            if defer:
+                self._deferred.append((kf, frame))
+            else:
+                self.process_deferred(kf, frame)
+            return kf
 
     def flush_deferred(self) -> int:
         """Run the queued deferred cycles in insertion order, pipelined:
@@ -179,27 +181,30 @@ class LocalMapper:
         against the same pre-commit snapshot, their results copied to
         pinned host memory behind one CUDA event.  Returns the token for
         commit_deferred; tracking may go on while the device works."""
-        self._cull_recent_points(kf)
-        tri = self._tri_dispatch(kf)
-        fuse = (self.map_searcher.dispatch(kf)
-                if self.map_searcher is not None else None)
-        ba = None
-        if self.lba is not None:
-            if hasattr(self.lba, "dispatch"):
-                ba = self.lba.dispatch(kf)
-            else:
-                # async_lba: the worker runs whole LBA cycles itself
-                # (AsyncLBA, system/pipeline.py)
-                self.lba.add(kf)
-        arrays = []
-        if tri is not None:
-            arrays += [tri[0]["valid"], tri[0]["match_b"], tri[0]["point"]]
-        if fuse is not None:
-            arrays += fuse[0]
-        if ba is not None:
-            arrays += ba[0]
-        return dict(kf=kf, tri=tri, fuse=fuse, ba=ba, copy=HostCopy(arrays),
-                    n_transforms=getattr(self.map, "n_transforms", 0))
+        with tracer.span("kf_cycle.dispatch", self.map.kf_frame_id[kf]):
+            self._cull_recent_points(kf)
+            tri = self._tri_dispatch(kf)
+            fuse = (self.map_searcher.dispatch(kf)
+                    if self.map_searcher is not None else None)
+            ba = None
+            if self.lba is not None:
+                if hasattr(self.lba, "dispatch"):
+                    ba = self.lba.dispatch(kf)
+                else:
+                    # async_lba: the worker runs whole LBA cycles itself
+                    # (AsyncLBA, system/pipeline.py)
+                    self.lba.add(kf)
+            arrays = []
+            if tri is not None:
+                arrays += [tri[0]["valid"], tri[0]["match_b"],
+                           tri[0]["point"]]
+            if fuse is not None:
+                arrays += fuse[0]
+            if ba is not None:
+                arrays += ba[0]
+            return dict(kf=kf, tri=tri, fuse=fuse, ba=ba,
+                        copy=HostCopy(arrays),
+                        n_transforms=getattr(self.map, "n_transforms", 0))
 
     def deferred_ready(self, token: dict) -> bool:
         """True when every result of a dispatched cycle has landed on the
@@ -212,24 +217,28 @@ class LocalMapper:
         if not self.map.kf_valid[kf]:
             return
         tri, fuse, ba = token["tri"], token["fuse"], token["ba"]
-        fetched = token["copy"].wait()
-        if tri is not None:
-            self._tri_commit(kf, fetched[0], fetched[1],
-                             fetched[2].astype(np.float64), tri[1])
-            del fetched[:3]
-        if fuse is not None:
-            nf = len(fuse[0])
-            self.map_searcher.commit(kf, fetched[:nf], fuse[1])
-            del fetched[:nf]
-        self.map.update_points_bulk(self.map.keyframe_points(kf),
-                                    only_dirty=True)
-        if ba is not None:
-            self.lba.commit(kf, fetched, ba[1])
-        if self.imu_solver is not None:
-            # the visual-inertial state machine, after the local BA
-            self.imu_solver.update_map()
-        for b in self.backends:
-            b.add(kf)
+        frame_id = self.map.kf_frame_id[kf]
+        with tracer.span("kf_cycle.wait", frame_id):
+            fetched = token["copy"].wait()
+        with tracer.span("kf_cycle.commit", frame_id):
+            if tri is not None:
+                self._tri_commit(kf, fetched[0], fetched[1],
+                                 fetched[2].astype(np.float64), tri[1])
+                del fetched[:3]
+            if fuse is not None:
+                nf = len(fuse[0])
+                self.map_searcher.commit(kf, fetched[:nf], fuse[1])
+                del fetched[:nf]
+            self.map.update_points_bulk(self.map.keyframe_points(kf),
+                                        only_dirty=True)
+            if ba is not None:
+                self.lba.commit(kf, fetched, ba[1])
+            if self.imu_solver is not None:
+                # the visual-inertial state machine, after the local BA
+                self.imu_solver.update_map()
+        with tracer.span("kf_cycle.backends", frame_id):
+            for b in self.backends:
+                b.add(kf)
 
     # ------------------------------------------------------------------
 

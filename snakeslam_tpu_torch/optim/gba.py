@@ -50,6 +50,7 @@ from snakeslam_tpu_torch.optim.packing import (
     pack_observations,
 )
 from snakeslam_tpu_torch.parallel import multichip as MC
+from snakeslam_tpu_torch.system import stats as tracer
 from snakeslam_tpu_torch.system.settings import Settings
 from snakeslam_tpu_torch.tracking.staging import (HostCopy,
                                                   pad_frames_features, upload)
@@ -161,22 +162,23 @@ class GlobalBA:
     # ------------------------------------------------------------------
 
     def full_ba(self, iterations: int = 5):
-        smap = self.map
-        if smap.n_keyframes < 2 or smap.n_points < 20:
-            return
-        problem, aux = self.pack_full()
-        if self._mesh is not None:
-            cam_pose, points = HostCopy(
-                self._sharded_full_ba(problem, iterations)).wait()
-            cost = float("nan")
-        else:
-            cam_pose, points, cost = HostCopy(full_ba_solve(
-                problem, self.cam64, self.bf64,
-                iterations=iterations)).wait()
-        smap.kf_pose[aux["kfs"]] = cam_pose[: len(aux["kfs"])]
-        smap.pt_pos[aux["pts"]] = points[: len(aux["pts"])]
-        smap.state += 1
-        return float(cost)
+        with tracer.span("gba.full_ba"):
+            smap = self.map
+            if smap.n_keyframes < 2 or smap.n_points < 20:
+                return
+            problem, aux = self.pack_full()
+            if self._mesh is not None:
+                cam_pose, points = HostCopy(
+                    self._sharded_full_ba(problem, iterations)).wait()
+                cost = float("nan")
+            else:
+                cam_pose, points, cost = HostCopy(full_ba_solve(
+                    problem, self.cam64, self.bf64,
+                    iterations=iterations)).wait()
+            smap.kf_pose[aux["kfs"]] = cam_pose[: len(aux["kfs"])]
+            smap.pt_pos[aux["pts"]] = points[: len(aux["pts"])]
+            smap.state += 1
+            return float(cost)
 
     def point_ba(self, iterations: int = 4):
         smap = self.map

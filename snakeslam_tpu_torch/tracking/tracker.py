@@ -25,6 +25,7 @@ from snakeslam_tpu_torch.map.slam_map import (FrameData, SlamMap,
                                               transform_pose_cw)
 from snakeslam_tpu_torch.models.tracking_step import coarse_step, fine_step
 from snakeslam_tpu_torch.ops.imu import preintegrate_np
+from snakeslam_tpu_torch.system import stats as tracer
 from snakeslam_tpu_torch.system.settings import InputType, Settings
 from snakeslam_tpu_torch.tracking.mono_init import MonoInitializer
 from snakeslam_tpu_torch.tracking.staging import pad_frame_features
@@ -196,7 +197,8 @@ class Tracker:
             self.last_tracked_frame = frame
             self.trajectory.append(frame)
 
-            need, reason = self._need_new_keyframe(frame)
+            with tracer.span("tracker.kf_decision"):
+                need, reason = self._need_new_keyframe(frame)
             if need and self.local_mapper is not None:
                 kf = self.local_mapper.insert_keyframe(frame, self.last_kf)
                 if kf >= 0:
@@ -382,19 +384,24 @@ class Tracker:
     def _track(self, frame: FrameData, T_pred: np.ndarray,
                stats: TrackStats, prior_w_rot: float = 0.0) -> bool:
         dev = self.device
+        tracer.count("tracker.frames")
         w_rot = _scalar(prior_w_rot, dev) if prior_w_rot else self.zero
-        lm_coarse, coarse_ids = self._coarse_local_map()
+        with tracer.span("tracker.coarse_map"):
+            lm_coarse, coarse_ids = self._coarse_local_map()
         if lm_coarse is None:
             return False
-        feats = pad_frame_features(frame, self.s.feature_slots, dev)
-        T_pred_t = torch.as_tensor(T_pred, dtype=torch.float32, device=dev)
-        out = coarse_step(
-            lm_coarse, feats, T_pred_t, self.cam, self.bf, self.bounds,
-            self.scales, self.log_sf, self.coarse_radius, w_rot,
-            self.zero,
-        )
+        with tracer.span("tracker.coarse"):
+            feats = pad_frame_features(frame, self.s.feature_slots, dev)
+            T_pred_t = torch.as_tensor(T_pred, dtype=torch.float32,
+                                       device=dev)
+            out = coarse_step(
+                lm_coarse, feats, T_pred_t, self.cam, self.bf, self.bounds,
+                self.scales, self.log_sf, self.coarse_radius, w_rot,
+                self.zero,
+            )
         Ns = self.s.feature_slots
-        packed = out["packed"].cpu().numpy()   # one device->host copy
+        with tracer.span("tracker.wait"):
+            packed = out["packed"].cpu().numpy()   # one device->host copy
         stats.n_coarse_matches = int(packed[16])
         stats.n_coarse_inliers = int(packed[17])
         if packed[18] > 0.5:
@@ -414,58 +421,65 @@ class Tracker:
         if self.map.state == self._fine_cache_state:
             lm_fine, fine_ids, _ = self._fine_cache
         else:
-            lm_fine, fine_ids = self._fine_local_map(np.unique(matched_pts))
-            if lm_fine is not None:
-                self._fine_cache = (lm_fine, fine_ids,
-                                    self.map.pt_alloc_gen[fine_ids].copy())
-                self._fine_cache_state = self.map.state
+            tracer.count("tracker.fine_map_rebuilds")
+            with tracer.span("tracker.fine_map"):
+                lm_fine, fine_ids = self._fine_local_map(
+                    np.unique(matched_pts))
+                if lm_fine is not None:
+                    self._fine_cache = (
+                        lm_fine, fine_ids,
+                        self.map.pt_alloc_gen[fine_ids].copy())
+                    self._fine_cache_state = self.map.state
         if lm_fine is None:
             return False
-        coarse_matched_pad = np.zeros(Ns, dtype=bool)
-        coarse_matched_pad[: frame.n] = matched_sel
-        coarse_pos = np.zeros((Ns, 3), dtype=np.float32)
-        coarse_pos[np.nonzero(coarse_matched_pad)[0]] = self.map.pt_pos[
-            matched_pts]
-        fout = fine_step(
-            lm_fine, feats, T_coarse,
-            torch.from_numpy(coarse_pos).to(dev),
-            torch.from_numpy(coarse_matched_pad).to(dev),
-            self.cam, self.bf, self.bounds, self.scales, self.log_sf,
-            self.fine_th, T_pred_t, w_rot, self.zero,
-        )
+        with tracer.span("tracker.fine"):
+            coarse_matched_pad = np.zeros(Ns, dtype=bool)
+            coarse_matched_pad[: frame.n] = matched_sel
+            coarse_pos = np.zeros((Ns, 3), dtype=np.float32)
+            coarse_pos[np.nonzero(coarse_matched_pad)[0]] = self.map.pt_pos[
+                matched_pts]
+            fout = fine_step(
+                lm_fine, feats, T_coarse,
+                torch.from_numpy(coarse_pos).to(dev),
+                torch.from_numpy(coarse_matched_pad).to(dev),
+                self.cam, self.bf, self.bounds, self.scales, self.log_sf,
+                self.fine_th, T_pred_t, w_rot, self.zero,
+            )
         P = lm_fine.position.shape[0]
-        fpacked = fout["packed"].cpu().numpy()
+        with tracer.span("tracker.wait"):
+            fpacked = fout["packed"].cpu().numpy()
         n_inl = int(fpacked[16])
         stats.n_fine_inliers = n_inl
         if n_inl < 25:
             return False
+        with tracer.span("tracker.post"):
+            frame.pose_cw = fpacked[:16].reshape(4, 4).astype(np.float64)
+            off = 17
+            fine_assign = fpacked[off:off + Ns].astype(np.int64)[: frame.n]
+            off += Ns
+            inlier = fpacked[off:off + Ns][: frame.n] > 0.5
+            off += Ns
+            visible_full = fpacked[off:off + P] > 0.5
+            matches = np.full(frame.n, -1, dtype=np.int64)
+            coarse_global = np.full(frame.n, -1, dtype=np.int64)
+            coarse_global[matched_sel] = matched_pts
+            keep_coarse = matched_sel & inlier
+            matches[keep_coarse] = coarse_global[keep_coarse]
+            keep_fine = (fine_assign >= 0) & inlier & ~keep_coarse
+            matches[keep_fine] = fine_ids[fine_assign[keep_fine]]
+            frame.matches = matches
+            frame.outlier = np.zeros(frame.n, dtype=bool)
+            frame.ref_kf = self.last_kf
+            frame.capture_rel(self.map.kf_pose[self.last_kf],
+                              self.map.kf_frame_id[self.last_kf])
 
-        frame.pose_cw = fpacked[:16].reshape(4, 4).astype(np.float64)
-        off = 17
-        fine_assign = fpacked[off:off + Ns].astype(np.int64)[: frame.n]
-        off += Ns
-        inlier = fpacked[off:off + Ns][: frame.n] > 0.5
-        off += Ns
-        visible_full = fpacked[off:off + P] > 0.5
-        matches = np.full(frame.n, -1, dtype=np.int64)
-        coarse_global = np.full(frame.n, -1, dtype=np.int64)
-        coarse_global[matched_sel] = matched_pts
-        keep_coarse = matched_sel & inlier
-        matches[keep_coarse] = coarse_global[keep_coarse]
-        keep_fine = (fine_assign >= 0) & inlier & ~keep_coarse
-        matches[keep_fine] = fine_ids[fine_assign[keep_fine]]
-        frame.matches = matches
-        frame.outlier = np.zeros(frame.n, dtype=bool)
-        frame.ref_kf = self.last_kf
-        frame.capture_rel(self.map.kf_pose[self.last_kf],
-                          self.map.kf_frame_id[self.last_kf])
-
-        # found/visible statistics: every final inlier match counts as found
-        visible = visible_full[: len(fine_ids)]
-        matched_ids = matches[matches >= 0]
-        visible_ids = np.union1d(fine_ids[visible], matched_ids)
-        self.map.pt_visible[visible_ids] += 1
-        self.map.pt_found[np.unique(matched_ids)] += 1
+            # found/visible statistics: every final inlier match counts as
+            # found
+            visible = visible_full[: len(fine_ids)]
+            matched_ids = matches[matches >= 0]
+            visible_ids = np.union1d(fine_ids[visible], matched_ids)
+            self.map.pt_visible[visible_ids] += 1
+            self.map.pt_found[np.unique(matched_ids)] += 1
         return True
 
     # ------------------------------------------------------------------

@@ -90,6 +90,8 @@ from dataclasses import dataclass, field
 
 import torch
 
+from snakeslam_tpu_torch.system import stats as tracer
+
 _lock = threading.Lock()          # the registry and the disabled depth
 _capture_lock = threading.Lock()  # one capture at a time in the process
 _local = threading.local()        # per thread: capture streams, the tally
@@ -302,7 +304,9 @@ class Compiled:
         key = (statics, desc, device, threading.get_ident())
         entry = self._entries.get(key)
         if entry is None:
-            return self._capture(key, statics, desc, leaves, copied, device)
+            with tracer.span("graphs.capture"):
+                return self._capture(key, statics, desc, leaves, copied,
+                                     device)
         return self._replay(key, entry, leaves)
 
     def _describe(self, key) -> str:
