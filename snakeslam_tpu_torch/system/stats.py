@@ -71,17 +71,19 @@ class _Span:
         stack = getattr(_local, "stack", None)
         if stack is None:
             stack = _local.stack = []
-        if stack:
-            rec[3], parent = stack[-1]
-            if rec[4] is None:
-                rec[4] = parent[4]
+        if stack and rec[4] is None:
+            rec[4] = stack[-1][1][4]
         if rec[4] is not None:
             rec[4] = int(rec[4])
         rec[5] = threading.get_ident()
         with _lock:
-            index = len(_records)
-            _records.append(rec)
-        stack.append((index, rec))
+            kept = _records
+            # a parent recorded before the last reset is not kept
+            if stack and stack[-1][2] is kept:
+                rec[3] = stack[-1][0]
+            index = len(kept)
+            kept.append(rec)
+        stack.append((index, rec, kept))
         self.stack = stack
         rec[1] = _clock()
         return self
@@ -111,7 +113,9 @@ def enabled() -> bool:
 
 
 def reset():
-    """Drop every record and counter (call it with no span open)."""
+    """Drop every record and counter.  A span open at the reset, on any
+    thread, is dropped with them; one opened inside it later is recorded
+    at the top (``parent`` -1)."""
     global _records
     with _lock:
         _records = []

@@ -29,13 +29,14 @@ SMALL = dict(fd_features=500, fd_levels=2, width=320, height=240,
 # every span and counter the per-frame RGB-D path meets on the CPU (graph
 # captures are the card's)
 SESSION_SPANS = {
-    "input.decode", "orb.detect", "input.depth", "tracker.frame",
+    "input.decode", "input.wait", "orb.detect", "input.depth", "tracker.frame",
     "tracker.coarse_map", "tracker.coarse", "tracker.wait",
     "tracker.fine_map", "tracker.fine", "tracker.post",
     "tracker.kf_decision", "kf.insert", "kf_cycle.dispatch",
     "kf_cycle.wait", "kf_cycle.commit", "kf_cycle.backends", "finalize",
     "gba.full_ba", "gba.realign"}
-SESSION_COUNTERS = {"tracker.frames", "tracker.fine_map_rebuilds"}
+SESSION_COUNTERS = {"tracker.frames", "tracker.fine_map_rebuilds",
+                    "input.frames", "input.frames_ready"}
 
 
 @pytest.fixture(autouse=True)
