@@ -1,7 +1,8 @@
 """The readings the limits of ``correct`` are set from.
 
     python3 slambench/calibrate.py --workload <cell> --seeds 1,2,3 \
-        --seconds <s> [--control 1] [--loop-offset-m 0.3]
+        --seconds <s> [--control 1] [--loop-offset-m 0.3] \
+        [--numbers a,b,...]
 
 In one process (one set-up's warm-up serves every seed: the shapes are the
 seed's, not its values), for each seed: the cell's sequences, a window of
@@ -12,7 +13,10 @@ reference in the program's place, computed in bfloat16).  With
 produced: the measured similarity's translation moved by that many metres
 along x before the correction applies it.  One JSON line a seed, with
 each number's worst case, median, 99th percentile and mean (the judge's
-``measure``).  The benchmark's own runs never run this.
+``measure``): the numbers the cell's limits list, or those ``--numbers``
+names (a new cell before it has limits; with neither, every built-in
+number that has something to read).  The benchmark's own runs never run
+this.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--control", type=int, default=0)
     ap.add_argument("--loop-offset-m", type=float, default=0.0)
+    ap.add_argument("--numbers", default="")
     args = ap.parse_args(argv)
     from harness import Runner, cleanup, load_cell, run_window, workdir_for
     from reference.judge import measure
@@ -70,26 +75,24 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.loop_offset_m:
         plant_loop_offset(args.loop_offset_m)
+    numbers = args.numbers.split(",") if args.numbers else None
     warmed = False
     for seed in (int(s) for s in args.seeds.split(",")):
         workdir = workdir_for(cell.name)
         try:
             t0 = time.perf_counter()
-            runner = Runner(cell, seed, "cuda", workdir)
+            runner = Runner(cell, seed, "cuda", workdir, numbers)
             if not warmed:
                 runner.warm_up()
                 warmed = True
             t_setup = time.perf_counter() - t0
             rec = run_window(runner, args.seconds)
-            images = None
-            if cell.traffic["generator"] == "tum_render":
-                seq = runner.seqs[0]
-                images = [str(seq.root / n) for n in seq.images]
             t1 = time.perf_counter()
 
             def detail(dtype):
-                got = measure(rec, cell.config, images, dtype, "cuda", seed,
-                              runner.truth)
+                got = measure(rec, cell.config, runner.seqs[0].images or None,
+                              dtype, "cuda", seed, runner.truth,
+                              runner.numbers or None, cell, runner)
                 return {k: stats(v) for k, v in got.items()}
             line = {"seed": seed, "setup_s": t_setup,
                     "loop_offset_m": args.loop_offset_m,

@@ -9,8 +9,15 @@ configuration's ``entry``:
 * ``windowed``: ``WindowedRunner(SlamSystem(settings, device), window)
   .run(frames)`` then ``system.finalize()``, on feature-level frames;
 * ``per_frame_input``: the CLI's own path, ``SlamSystem.run(iter(Input(
-  settings, dataset_root, device)))``, over a sequence rendered into TUM's
-  layout.
+  settings, dataset_root, device)))``, over a sequence written into a
+  dataset's layout.
+
+The traffic file names its generator, ``traffic/<generator>.py``, which
+makes the cell's sequences from seeds drawn from the run's seed (see
+``traffic/sequence.py``).  The judge's numbers are the traffic file's
+``limits``; one that is not built into ``reference/judge.py`` is a module
+of its own, ``reference/numbers/<name>.py``, whose recording hooks the
+``Recorder`` calls while the window runs.
 
 Each session gets a new ``SlamSystem`` on the next of the cell's
 sequences.  A frame counts when its pose is out on the host before the
@@ -29,6 +36,7 @@ import importlib.util
 import itertools
 import json
 import shutil
+import sys
 import tempfile
 import time
 from dataclasses import dataclass, field
@@ -38,8 +46,9 @@ import numpy as np
 import torch
 
 from probes import LaunchTally, Probe, SpanLog, resolve
-from traffic.frames import feature_frames, frame_data
-from traffic.synthetic import SyntheticWorld, loop_trajectory, orbit_trajectory
+from reference.judge import file_numbers
+from traffic.frames import frame_data
+from traffic.sequence import Sequence
 
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
@@ -89,15 +98,30 @@ def load_cell(name: str, manifest: dict | None = None,
     return Cell(name, entry, config, traffic, e2e, layer)
 
 
+def _load(path: Path, name: str):
+    """The module of ``path``, as ``name`` in ``sys.modules`` (a dataclass
+    defined in it looks its module up there)."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def load_reader(metric: str):
     """The reader module of a per-layer metric: ``metrics/<metric>.py``,
     with ``PROBES`` (method specs to time) and ``read(ctx)``."""
-    path = HERE / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        "slambench_metric_" + metric.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _load(HERE / "metrics" / f"{metric}.py",
+                 "slambench_metric_" + metric.replace(".", "_"))
+
+
+def load_generator(name: str):
+    """The traffic generator ``traffic/<name>.py``, with
+    ``sequences(cell, seeds, workdir)``."""
+    path = HERE / "traffic" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no generator {name!r}: {path} is missing")
+    return _load(path, "slambench_traffic_" + name.replace(".", "_"))
 
 
 # ---------------------------------------------------------------------------
@@ -137,78 +161,12 @@ def sub_seeds(seed: int, n: int) -> list[int]:
             for s in np.random.SeedSequence(seed).spawn(n)]
 
 
-@dataclass
-class Sequence:
-    raw: list = field(default_factory=list)      # RawFrame, feature cells
-    root: Path | None = None                     # rendered TUM directory
-    images: list = field(default_factory=list)   # rgb file names, in order
-    frames: int = 0
-    truth: np.ndarray | None = None              # true camera centres by
-                                                 #   frame id (feature cells)
-
-
-def true_centres(raw) -> np.ndarray:
-    """The generator's camera centres -R^T t of ``raw`` frames, by id."""
-    T = np.stack([r.gt_pose_cw for r in raw]).astype(np.float64)
-    return -np.einsum("nji,nj->ni", T[:, :3, :3], T[:, :3, 3])
-
-
-def _trajectory(t: dict, n: int, arc_scale: float = 1.0):
-    if t["trajectory"] == "loop":
-        return loop_trajectory(n, radius=t["radius_m"], fps=t["fps"])
-    return orbit_trajectory(n, radius=t["radius_m"],
-                            arc=t["arc_rad"] * arc_scale, fps=t["fps"])
-
-
 def make_sequences(cell: Cell, seed: int, workdir: Path):
     """(the session sequences, the warm-up sequence) of a cell from its
-    seed."""
+    seed, by the generator its traffic names."""
     t = cell.traffic
-    ini = cell.config["ini"]
     seeds = sub_seeds(seed, t["sequences"] + 1)
-    if t["generator"] == "feature_frames":
-        stereo = int(ini["Input"]["input_type"]) == 2
-        rgbd = int(ini["Input"]["input_type"]) == 1
-
-        def frames(world_seed, traj):
-            world = SyntheticWorld(n_points=t["world_points"], seed=world_seed)
-            return list(feature_frames(world, traj, stereo=stereo, rgbd=rgbd,
-                                       noise_px=t["noise_px"]))
-
-        seqs = []
-        for s in seeds[:-1]:
-            raw = frames(s, _trajectory(t, t["frames"]))
-            seqs.append(Sequence(raw=raw, frames=t["frames"],
-                                 truth=true_centres(raw)))
-        w = t["warmup"]
-        if w["sequence"] == "own":
-            # a sequence of its own whose dense time stamps make keyframes
-            # often, so every program of the keyframe cycle is met
-            raw = frames(seeds[-1], _trajectory(t, w["frames"],
-                                                w["frames"] / t["frames"]))
-            for r in raw:
-                r.timestamp = r.frame_id / w["dense_fps"]
-        else:
-            raw = seqs[w["sequence"]].raw[:w["frames"]]
-        return seqs, Sequence(raw=raw, frames=len(raw))
-    if t["generator"] == "tum_render":
-        from traffic.tum import arc_trajectory, room_world, write_sequence
-
-        seqs = []
-        for i, s in enumerate(seeds[:-1]):
-            world = room_world(cell.config["camera"], s, t["world_points"],
-                               t["extent_m"])
-            traj = arc_trajectory(t["frames"], t["fps"], t["radius_m"],
-                                  t["arc_rad"])
-            root = workdir / f"seq{i}"
-            images = write_sequence(root, world, traj)
-            seqs.append(Sequence(root=root, images=images,
-                                 frames=t["frames"]))
-        w = t["warmup"]
-        base = seqs[w["sequence"]]
-        return seqs, Sequence(root=base.root, images=base.images,
-                              frames=w["frames"])
-    raise ValueError(f"unknown generator {t['generator']!r}")
+    return load_generator(t["generator"]).sequences(cell, seeds, workdir)
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +189,8 @@ class FrameRec:
     features: tuple | None = None      # per-frame path: ORB's output
     depth: np.ndarray | None = None    # an init frame's feature depths
     source: tuple | None = None        # where ``points`` are read from
+    extra: dict = field(default_factory=dict)   # a judge number's
+                                                #   ``keep_frame``, by name
 
     def resolve(self):
         """Fill ``points`` from the tensors the tracker read, once the
@@ -273,15 +233,26 @@ class MapRec:
     pt_obs_kf: np.ndarray         # (P, MAX_OBS) observing keyframe slots
     pt_obs_feat: np.ndarray
     loops: int
+    extra: dict = field(default_factory=dict)   # a judge number's
+                                                #   ``keep_map``, by name
 
 
 class Recorder:
     """Stamps frames and keeps the judge's inputs; installed on the
-    program's classes for the window."""
+    program's classes for the window.  ``number_modules`` maps the judge
+    numbers that are modules of their own to them: each one's
+    ``keep_frame(frame)`` runs on every frame recorded, its
+    ``keep_map(system)`` after each ``finalize``."""
 
-    def __init__(self, deadline: float, spans: SpanLog | None = None):
+    def __init__(self, deadline: float, spans: SpanLog | None = None,
+                 number_modules: dict | None = None):
         self.deadline = deadline
         self.spans = spans
+        mods = number_modules or {}
+        self._keep_frame = {n: m.keep_frame for n, m in mods.items()
+                            if hasattr(m, "keep_frame")}
+        self._keep_map = {n: m.keep_map for n, m in mods.items()
+                          if hasattr(m, "keep_map")}
         self.reads = 0                # per-frame path: frames read
         self.read_s = 0.0             #   and the reader's seconds
         self.session = -1
@@ -347,7 +318,8 @@ class Recorder:
                     rec.frames.append(FrameRec(
                         rec.session, fr.frame_id, t, fr.pose_cw.copy(),
                         fr.uv, fr.right, fr.octave, kind="window",
-                        source=("window", position, a)))
+                        source=("window", position, a),
+                        extra=rec.frame_extra(fr)))
                 if t > rec.deadline:
                     raise WindowClosed
                 return r
@@ -433,18 +405,23 @@ class Recorder:
                 self.session, frame.frame_id, t,
                 None if lost else frame.pose_cw.copy(),
                 kind="lost" if lost else "untracked", t_start=start,
-                features=feats))
+                features=feats, extra=self.frame_extra(frame)))
             return
         if isinstance(tr[0], str):
             self.frames.append(FrameRec(
                 self.session, frame.frame_id, t, frame.pose_cw.copy(),
                 frame.uv, frame.right, frame.octave, tr[1], kind="init",
-                t_start=start, features=feats, depth=frame.depth))
+                t_start=start, features=feats, depth=frame.depth,
+                extra=self.frame_extra(frame)))
             return
         self.frames.append(FrameRec(
             self.session, frame.frame_id, t, tr[0], frame.uv, frame.right,
             frame.octave, kind="track", t_start=start, features=feats,
-            source=tr[1]))
+            source=tr[1], extra=self.frame_extra(frame)))
+
+    def frame_extra(self, frame) -> dict:
+        """What the judge numbers' ``keep_frame`` hooks keep of ``frame``."""
+        return {n: f(frame) for n, f in self._keep_frame.items()}
 
     def keep_map(self, system):
         smap = system.map
@@ -457,7 +434,8 @@ class Recorder:
             smap.kf_feat_uv[kfs].copy(), smap.kf_feat_right[kfs].copy(),
             smap.kf_feat_octave[kfs].copy(), pts, smap.pt_pos[pts].copy(),
             smap.pt_obs_kf[pts].copy(), smap.pt_obs_feat[pts].copy(),
-            int(system.loop_closing.n_loops_closed)))
+            int(system.loop_closing.n_loops_closed),
+            {n: f(system) for n, f in self._keep_map.items()}))
 
 
 # ---------------------------------------------------------------------------
@@ -504,14 +482,19 @@ class InputFrames:
 
 
 class Runner:
-    """Builds sessions of one cell on ``device``."""
+    """Builds sessions of one cell on ``device``.  ``numbers`` are the
+    judge numbers recorded for (default: the traffic's ``limits``)."""
 
-    def __init__(self, cell: Cell, seed: int, device, workdir: Path):
+    def __init__(self, cell: Cell, seed: int, device, workdir: Path,
+                 numbers: list | None = None):
         self.cell = cell
         self.seed = seed
         self.device = torch.device(device)
         self.workdir = workdir
         self.entry = cell.config["entry"]
+        self.numbers = list(cell.traffic.get("limits", {})
+                            if numbers is None else numbers)
+        self.number_modules = file_numbers(self.numbers)
         self.seqs, self.warm = make_sequences(cell, seed, workdir)
         self.orb_frames = self._orb_sample()
 
@@ -597,7 +580,7 @@ def run_window(runner: Runner, seconds: float, probes=(), trace=None,
     if trace is not None:
         trace.start()
     t_open = time.perf_counter()
-    rec = Recorder(t_open + seconds, spans)
+    rec = Recorder(t_open + seconds, spans, runner.number_modules)
     rec.install()
     try:
         for k in itertools.count():

@@ -35,6 +35,13 @@ decided"):
   traffic's revisits make (``loops_per_session``), a count the traffic
   states.
 
+A cell is judged by the numbers its traffic file's ``limits`` list, and
+only those are computed, with what they derive from: the frames' excess
+costs for their mean, and one pass over the maps for ``kf_gap_mm``,
+``point_excess_chi2`` and ``kf_ate_mm``.  A listed number that is not
+built in is a module of its own, ``reference/numbers/<name>.py`` (see
+``load_number``).
+
 ``measure`` gives each number's per-item readings (a frame, a keyframe, a
 point, a session's map); ``readings`` reduces them to what a run is
 judged by.
@@ -45,11 +52,21 @@ program's place in the precision below float32, and judged the same way.
 
 from __future__ import annotations
 
+import importlib.util
+import sys
+from pathlib import Path
+
 import numpy as np
 import torch
 
 from reference import geometry as G
 
+# in the order a run prints them
+BUILT_IN = ("frame_excess_chi2", "init_gap_mm", "kf_gap_mm",
+            "point_excess_chi2", "kf_ate_mm", "orb_mismatch_pct",
+            "frame_excess_chi2_mean", "loops_missed")
+MAP_NUMBERS = ("kf_gap_mm", "point_excess_chi2", "kf_ate_mm")
+NUMBERS = Path(__file__).resolve().parent / "numbers"
 GBA_OBS = 16          # observations of a point the global BA packs
 BLOCK = 256           # frames per solve
 MAX_FRAMES = 1024     # tracked frames judged a run: all, or a sample
@@ -247,46 +264,111 @@ def worst(x: np.ndarray) -> float | None:
     return float(np.max(x)) if len(x) else None
 
 
+def load_number(name: str):
+    """The module of a judge number that is not built in:
+    ``reference/numbers/<name>.py``.  It defines ``measure(rec, cell,
+    runner, dtype, device, seed)``, the per-item readings (an array) of
+    the recorded run, which the run is judged by the maximum of unless it
+    also defines ``reduce(values)``.  It may define ``keep_frame(frame)``
+    and ``keep_map(system)``: the recorder keeps what they return from
+    each recorded frame in ``FrameRec.extra[name]`` and from each session's
+    system after ``finalize`` in ``MapRec.extra[name]``.  Like the rest of
+    the reference it reads the program's objects handed to it and imports
+    nothing of the program."""
+    path = NUMBERS / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"judge number {name!r} is not built in, and {path} is missing")
+    key = "slambench_number_" + name.replace(".", "_")
+    spec = importlib.util.spec_from_file_location(key, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[key] = mod      # where a dataclass in it looks it up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def file_numbers(numbers) -> dict:
+    """{name: module} of the numbers in ``numbers`` that are not built in."""
+    return {n: load_number(n) for n in numbers if n not in BUILT_IN}
+
+
+def default_numbers(images=None, truth=None,
+                    loops_per_session: int = 0) -> list[str]:
+    """Every built-in number with something to read: the ATE with
+    ``truth``, the ORB check with ``images``, the missed loops with
+    ``loops_per_session``."""
+    skip = {"kf_ate_mm": not truth, "orb_mismatch_pct": images is None,
+            "loops_missed": not loops_per_session}
+    return [n for n in BUILT_IN if not skip.get(n)]
+
+
 def measure(rec, config: dict, images=None, dtype=torch.float64,
-            device="cpu", seed: int = 0, truth=None) -> dict:
-    """Each number's per-item readings over a run (arrays); ``dtype``
-    below float64 gives the control's.  The pose and point solves run on
-    ``device``; frames and maps beyond ``MAX_FRAMES`` and ``MAX_MAPS`` are
-    sampled from ``seed``."""
+            device="cpu", seed: int = 0, truth=None, numbers=None,
+            cell=None, runner=None) -> dict:
+    """Per-item readings (arrays) of ``numbers`` (default: every built-in
+    one with something to read) over a run, and of what they derive from;
+    ``dtype`` below float64 gives the control's.  The pose and point
+    solves run on ``device``; frames and maps beyond ``MAX_FRAMES`` and
+    ``MAX_MAPS`` are sampled from ``seed``.  A number of a module of its
+    own reads ``cell`` and ``runner``."""
+    if numbers is None:
+        numbers = default_numbers(images, truth)
+    want = set(numbers)
+    if "frame_excess_chi2_mean" in want:
+        want.add("frame_excess_chi2")
     ini = config["ini"]
     camc = ini["Camera"]
     cam = (camc["fx"], camc["fy"], camc["cx"], camc["cy"])
     bf = float(camc["bf"])
     fd = ini["FeatureDetector"]
     sf = float(fd["fd_scale_factor"])
-    kf, pt, ate = map_gaps(rec.maps, cam, bf, sf, dtype, device, seed, truth)
-    out = dict(frame_excess_chi2=frame_excess(rec.frames, cam, bf, sf, dtype,
-                                              device, seed),
-               init_gap_mm=init_gaps(rec.frames, cam, dtype),
-               kf_gap_mm=kf, point_excess_chi2=pt)
-    if truth:
-        out["kf_ate_mm"] = ate
-    if images is not None:
+    out = {}
+    if "frame_excess_chi2" in want:
+        out["frame_excess_chi2"] = frame_excess(rec.frames, cam, bf, sf,
+                                                dtype, device, seed)
+    if "init_gap_mm" in want:
+        out["init_gap_mm"] = init_gaps(rec.frames, cam, dtype)
+    if want & set(MAP_NUMBERS):
+        got = map_gaps(rec.maps, cam, bf, sf, dtype, device, seed, truth)
+        out.update((n, v) for n, v in zip(MAP_NUMBERS, got) if n in want)
+    if "orb_mismatch_pct" in want:
         orb = dict(n=int(fd["fd_features"]), levels=int(fd["fd_levels"]),
                    scale_factor=sf, threshold=float(fd["fd_ini_th_fast"]))
         low = torch.float32 if dtype == torch.float64 else dtype
-        out["orb_mismatch_pct"] = orb_mismatch(rec.frames, images, orb, low)
+        out["orb_mismatch_pct"] = (np.zeros(0) if images is None else
+                                   orb_mismatch(rec.frames, images, orb, low))
+    for name, mod in file_numbers(numbers).items():
+        out[name] = np.asarray(mod.measure(rec, cell, runner, dtype, device,
+                                           seed), dtype=np.float64)
     return out
 
 
 def readings(rec, config: dict, images=None, dtype=torch.float64,
              device="cpu", seed: int = 0, loops_per_session: int = 0,
-             truth=None) -> dict:
-    """The numbers a run is judged by: each of ``measure``'s worst case,
-    the frames' mean excess, and with ``loops_per_session`` the sessions
-    that missed a loop."""
-    got = measure(rec, config, images, dtype, device, seed, truth)
-    fr = got["frame_excess_chi2"]
-    out = {name: worst(v) for name, v in got.items()}
-    out["frame_excess_chi2_mean"] = float(np.mean(fr)) if len(fr) else None
-    if loops_per_session:
-        # the traffic revisits its start once a session: a finished
-        # session that closed fewer loops missed one
-        out["loops_missed"] = (sum(m.loops < loops_per_session
-                                   for m in rec.maps) if rec.maps else None)
+             truth=None, numbers=None, cell=None, runner=None) -> dict:
+    """The numbers a run is judged by, each of ``numbers`` (default: every
+    built-in one with something to read) and no other: a worst case of
+    ``measure``'s readings, the frames' mean excess, or the sessions that
+    missed one of ``loops_per_session`` loops; a number of a module of its
+    own by its ``reduce``.  None where there is nothing to read."""
+    if numbers is None:
+        numbers = default_numbers(images, truth, loops_per_session)
+    got = measure(rec, config, images, dtype, device, seed, truth, numbers,
+                  cell, runner)
+    out = {}
+    for name in BUILT_IN:
+        if name not in numbers:
+            continue
+        if name == "frame_excess_chi2_mean":
+            fr = got["frame_excess_chi2"]
+            out[name] = float(np.mean(fr)) if len(fr) else None
+        elif name == "loops_missed":
+            # the traffic revisits its start once a session: a finished
+            # session that closed fewer loops missed one
+            out[name] = (sum(m.loops < loops_per_session for m in rec.maps)
+                         if rec.maps and loops_per_session else None)
+        else:
+            out[name] = worst(got[name])
+    for name, mod in file_numbers(numbers).items():
+        out[name] = getattr(mod, "reduce", worst)(got[name])
     return out

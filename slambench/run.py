@@ -114,20 +114,20 @@ def graph_captures() -> int:
     return sum(v["captures"] for v in graphs.stats().values())
 
 
-def judge(cell, rec, runner, seed: int):
-    """(correct, the compared numbers with their limits)."""
+def judge(cell, rec, runner, seed: int, device: str = "cuda"):
+    """(correct, the compared numbers with their limits); the reference's
+    solves run on ``device``."""
     from reference.judge import readings
 
-    images = None
-    if cell.traffic["generator"] == "tum_render":
-        seq = runner.seqs[0]
-        images = [str(seq.root / name) for name in seq.images]
-    got = readings(rec, cell.config, images, device="cuda", seed=seed,
+    # the numbers the cell's limits list, and no other
+    got = readings(rec, cell.config, runner.seqs[0].images or None,
+                   device=device, seed=seed,
                    loops_per_session=cell.traffic.get("loops_per_session", 0),
-                   truth=runner.truth)
+                   truth=runner.truth, numbers=runner.numbers, cell=cell,
+                   runner=runner)
     limits = cell.traffic.get("limits", {})
-    checks = {name: {"value": v, "limit": limits.get(name)}
-              for name, v in got.items() if name in limits or not limits}
+    checks = {name: {"value": v, "limit": limits[name]}
+              for name, v in got.items()}
     # a number with nothing to read (no finished session) fails, and so
     # does a cell that states no limits
     ok = bool(limits) and all(

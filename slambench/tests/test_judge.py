@@ -225,3 +225,28 @@ def test_faults_fail_per_frame(monkeypatch, fault):
         monkeypatch.setattr(FeatureDetector, "detect", detect)
     cell, _, got, _ = run_tiny("tum_rgbd_fr1.orbit300", 8)
     assert over(got, cell.traffic["limits"]), got
+
+
+def test_unlisted_init_gap_never_reads_depth():
+    """A monocular session's init frame carries no depth: a cell that does
+    not list ``init_gap_mm`` is judged without reaching it, and only by
+    the numbers it lists; listing it reaches the depth."""
+    from types import SimpleNamespace
+
+    from harness import FrameRec
+
+    class NoDepth:
+        def __getitem__(self, key):
+            raise AssertionError("the init frame's depth was read")
+
+    n = 12
+    init = FrameRec(0, 0, 0.0, np.eye(4), np.zeros((n, 2)),
+                    -np.ones(n), np.zeros(n, np.int32),
+                    np.zeros((n, 3)), kind="init", depth=NoDepth())
+    rec = SimpleNamespace(frames=[init], maps=[])
+    config = load_cell("tum_rgbd_fr1.orbit300").config
+    listed = ["frame_excess_chi2", "frame_excess_chi2_mean", "kf_gap_mm"]
+    got = readings(rec, config, numbers=listed)
+    assert got == dict.fromkeys(listed)
+    with pytest.raises(AssertionError, match="depth was read"):
+        readings(rec, config, numbers=listed + ["init_gap_mm"])

@@ -58,6 +58,20 @@ def test_the_reference_imports_nothing_of_the_program():
     assert out.stdout.strip() == "[]"
 
 
+def test_the_judge_numbers_import_nothing_of_the_program():
+    """Every judge number of a module of its own (``reference/numbers/``)
+    loads as the judge loads it, with nothing of the program."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]);"
+            "from reference.judge import NUMBERS, load_number;"
+            "[load_number(p.stem) for p in sorted(NUMBERS.glob('*.py'))];"
+            "print(sorted(m for m in sys.modules if m.startswith('snake')"
+            " or m.split('.')[0] in ('jax', 'jaxlib', 'flax')))")
+    out = subprocess.run([sys.executable, "-c", code, str(HERE)],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_forbidden_names_are_compared_whole(monkeypatch):
     monkeypatch.setitem(sys.modules, "snakeslam_tpu_torchx", object())
     assert RUN.forbidden_modules() == []

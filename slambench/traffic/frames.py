@@ -4,12 +4,13 @@ A frozen copy of ``snakeslam_tpu_torch/frontend/synthetic_source.py``'s
 ``synthetic_frames``: the same calls into the world's random generator in
 the same order, so a seed gives the program's own frames.  It keeps each
 frame's arrays (and the ground truth, which the program is not given) in a
-``RawFrame``; ``frame_data`` builds the program's input type from one.
+``RawFrame``; ``frame_data`` builds the program's input type from one,
+or from any generator's raw frame.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 
@@ -49,11 +50,15 @@ def feature_frames(world, trajectory, stereo: bool, rgbd: bool = False,
                        gt_pose_cw=sf.pose_cw, point_id=sf.point_id)
 
 
-def frame_data(raw: RawFrame, FrameData):
+TRUTH = ("gt_pose_cw", "point_id")    # the generator's, never the program's
+
+
+def frame_data(raw, FrameData):
     """The program's ``FrameData`` of ``raw``, made anew for each session
-    (the system writes its tracking state into the object); no ground
-    truth."""
-    return FrameData(frame_id=raw.frame_id, timestamp=raw.timestamp,
-                     uv=raw.uv, octave=raw.octave, angle=raw.angle,
-                     descriptors=raw.descriptors, right=raw.right,
-                     depth=raw.depth)
+    (the system writes its tracking state into the object): each field
+    that ``FrameData`` declares and ``raw`` carries, the IMU samples
+    included where a generator gives them; never the ground truth."""
+    return FrameData(**{f.name: getattr(raw, f.name)
+                        for f in fields(FrameData)
+                        if f.init and f.name not in TRUTH
+                        and hasattr(raw, f.name)})
