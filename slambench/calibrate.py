@@ -8,10 +8,12 @@ In one process (one set-up's warm-up serves every seed: the shapes are the
 seed's, not its values), for each seed: the cell's sequences, a window of
 ``--seconds`` at the cell's own load, then the judge's numbers for the
 program's answers and, with ``--control 1``, for the control's (the
-reference in the program's place, computed in bfloat16).  With
-``--loop-offset-m`` every loop correction is planted wrong where it is
-produced: the measured similarity's translation moved by that many metres
-along x before the correction applies it.  One JSON line a seed, with
+reference in the program's place, computed in bfloat16).  A window that
+finished no session is judged on its session in flight
+(``harness.judge_in_flight``).  With ``--loop-offset-m`` every loop
+correction is planted wrong where it is produced: the measured
+similarity's translation moved by that many metres along x before the
+correction applies it.  One JSON line a seed, with
 each number's worst case, median, 99th percentile and mean (the judge's
 ``measure``): the numbers the cell's limits list, or those ``--numbers``
 names (a new cell before it has limits; with neither, every built-in
@@ -64,7 +66,8 @@ def main(argv=None) -> int:
     ap.add_argument("--loop-offset-m", type=float, default=0.0)
     ap.add_argument("--numbers", default="")
     args = ap.parse_args(argv)
-    from harness import Runner, cleanup, load_cell, run_window, workdir_for
+    from harness import (Runner, cleanup, judge_in_flight, load_cell,
+                         run_window, workdir_for)
     from reference.judge import measure
 
     cell = load_cell(args.workload)
@@ -87,6 +90,7 @@ def main(argv=None) -> int:
                 warmed = True
             t_setup = time.perf_counter() - t0
             rec = run_window(runner, args.seconds)
+            in_flight = judge_in_flight(runner, rec)
             t1 = time.perf_counter()
 
             def detail(dtype):
@@ -99,6 +103,7 @@ def main(argv=None) -> int:
                     "frames": len(rec.frames),
                     "lost": sum(f.pose is None for f in rec.frames),
                     "sessions": rec.sessions_done,
+                    "in_flight_judged": in_flight,
                     # keyframes, points, loops closed of each finished
                     # session's map
                     "maps": [[len(m.kf_ids), len(m.pt_ids), m.loops]

@@ -3,14 +3,17 @@ sessions, the readings, the judge.
 
 A cell names a configuration (``configs/<name>.json``) and its traffic
 (``workloads/<cell>.json``); each per-layer metric is a reader of its own
-(``metrics/<metric>.py``).  This module knows two entries, named by the
-configuration's ``entry``:
+(``metrics/<metric>.py``).  This module knows three entries, named by
+the configuration's ``entry`` (``ENTRIES``):
 
 * ``windowed``: ``WindowedRunner(SlamSystem(settings, device), window)
   .run(frames)`` then ``system.finalize()``, on feature-level frames;
 * ``per_frame_input``: the CLI's own path, ``SlamSystem.run(iter(Input(
   settings, dataset_root, device)))``, over a sequence written into a
-  dataset's layout.
+  dataset's layout, the ``Input`` built before the system as the CLI
+  builds them (a dataset's own calibration reaches the settings first);
+* ``per_frame``: ``SlamSystem.run(frames)`` on feature-level frames, the
+  per-frame tracker with no reader and no ORB.
 
 The traffic file names its generator, ``traffic/<generator>.py``, which
 makes the cell's sequences from seeds drawn from the run's seed (see
@@ -23,9 +26,12 @@ Each session gets a new ``SlamSystem`` on the next of the cell's
 sequences.  A frame counts when its pose is out on the host before the
 window closes (the windowed runner's ``_consume`` returned, or the
 system's frame listener ran); the session in flight at the close is
-dropped.  What the judge needs (each tracked frame's pose, matches and the
-map points it was tracked against; each finished session's map after
-``finalize``) is recorded by wrappers around the program's methods.
+dropped, unless the window finished no session: then ``judge_in_flight``
+finalizes a per-frame entry's after the window, for the judge alone.  What the judge needs
+(each tracked frame's pose, matches, the map points it was tracked
+against and the motion prior it was refined with; each finished session's
+map after ``finalize``, with its IMU constraints; each session's camera)
+is recorded by wrappers around the program's methods.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from traffic.sequence import Sequence
 
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
+ENTRIES = ("windowed", "per_frame_input", "per_frame")
 
 
 class WindowClosed(Exception):
@@ -189,6 +196,10 @@ class FrameRec:
     features: tuple | None = None      # per-frame path: ORB's output
     depth: np.ndarray | None = None    # an init frame's feature depths
     source: tuple | None = None        # where ``points`` are read from
+    prior: tuple | None = None         # per-frame path: (pose, rotation
+                                       #   weight) of the motion prior it
+                                       #   was refined with, where weighted
+                                       #   (the gyro's)
     extra: dict = field(default_factory=dict)   # a judge number's
                                                 #   ``keep_frame``, by name
 
@@ -206,7 +217,9 @@ class FrameRec:
             m = assign >= 0
             pts[m] = position.cpu().double().numpy()[assign[m]]
         else:
-            position, fine_ids, coarse_pos, coarse_matched, matches = args
+            (position, fine_ids, coarse_pos, coarse_matched, matches,
+             prior) = args
+            self.prior = _read_prior(*prior)
             cm = coarse_matched.cpu().numpy()[:n]
             cp = coarse_pos.cpu().double().numpy()[:n]
             lm = position.cpu().double().numpy()
@@ -217,6 +230,25 @@ class FrameRec:
             pts[fine] = lm[np.searchsorted(fine_ids, matches[fine])]
         self.points = pts
         self.source = None
+
+
+def _rotation_weight(w_rot, w_trans) -> float:
+    """The weight of a motion prior's or a relative-pose constraint's
+    rotation; the judge holds rotation terms alone, as the program weighs
+    no translation there (tracking/tracker.py, imu/state_solver.py)."""
+    if float(w_trans) != 0.0:
+        raise ValueError(f"a translation weight {float(w_trans)!r}: the "
+                         f"judge's IMU terms are rotations alone")
+    return float(w_rot)
+
+
+def _read_prior(pose, w_rot, w_trans):
+    """(pose (4, 4), rotation weight) of a pose refine's motion prior, from
+    the tensors it was given; None where it has no weight."""
+    w = _rotation_weight(w_rot, w_trans)
+    if not w:
+        return None
+    return pose.cpu().double().numpy(), w
 
 
 @dataclass
@@ -233,6 +265,10 @@ class MapRec:
     pt_obs_kf: np.ndarray         # (P, MAX_OBS) observing keyframe slots
     pt_obs_feat: np.ndarray
     loops: int
+    rpc: list = field(default_factory=list)     # the IMU solver's relative-
+                                                #   pose constraints over the
+                                                #   keyframes: (row i, row j,
+                                                #   T (4, 4), rotation weight)
     extra: dict = field(default_factory=dict)   # a judge number's
                                                 #   ``keep_map``, by name
 
@@ -256,6 +292,8 @@ class Recorder:
         self.reads = 0                # per-frame path: frames read
         self.read_s = 0.0             #   and the reader's seconds
         self.session = -1
+        self.cameras: dict = {}       # session -> (fx, fy, cx, cy, bf) its
+                                      #   system was built with
         self.frames: list[FrameRec] = []
         self.late = 0                 # poses out after the close
         self.maps: list[MapRec] = []
@@ -326,10 +364,14 @@ class Recorder:
             return f
 
         def fine_step(inner):
-            def f(lm, feats, T_coarse, coarse_pos, coarse_matched, *a, **k):
-                rec._fine_in = (lm.position, coarse_pos, coarse_matched)
+            def f(lm, feats, T_coarse, coarse_pos, coarse_matched, cam, bf,
+                  bounds, scales, log_sf, th, prior_T, w_rot, w_trans, *a,
+                  **k):
+                rec._fine_in = (lm.position, coarse_pos, coarse_matched,
+                                (prior_T, w_rot, w_trans))
                 return inner(lm, feats, T_coarse, coarse_pos, coarse_matched,
-                             *a, **k)
+                             cam, bf, bounds, scales, log_sf, th, prior_T,
+                             w_rot, w_trans, *a, **k)
             return f
 
         def track(inner):
@@ -337,11 +379,12 @@ class Recorder:
                 rec._fine_in = None
                 ok = inner(tracker, frame, *a, **k)
                 if ok:
-                    position, coarse_pos, coarse_matched = rec._fine_in
+                    position, coarse_pos, coarse_matched, prior = rec._fine_in
                     rec._tracked[id(frame)] = (
                         frame.pose_cw.copy(),
                         ("track", position, tracker._fine_cache[1],
-                         coarse_pos, coarse_matched, frame.matches.copy()))
+                         coarse_pos, coarse_matched, frame.matches.copy(),
+                         prior))
                 return ok
             return f
 
@@ -386,6 +429,9 @@ class Recorder:
         self.session += 1
         self._snap.clear()
         self._tracked.clear()
+        s = system.s
+        self.cameras[self.session] = tuple(float(v) for v in (
+            s.fx, s.fy, s.cx, s.cy, s.bf))
         system.frame_listeners.append(self.on_frame)
 
     def on_frame(self, frame):
@@ -428,13 +474,22 @@ class Recorder:
         kfs = smap.valid_keyframes()
         kfs = kfs[np.argsort(smap.kf_frame_id[kfs])]
         pts = smap.valid_points()
+        # the constraints the global BA packs over these keyframes
+        # (optim/gba.py, optim/lba.py's pack_rpc)
+        sol = getattr(system, "imu_solver", None)
+        row = {int(k): i for i, k in enumerate(kfs)}
+        rpc = [(row[i], row[j], np.array(T, np.float64),
+                _rotation_weight(w_r, w_t))
+               for i, j, T, w_t, w_r in
+               (sol.rpc_for_window(list(row)) if sol is not None else None)
+               or ()]
         self.maps.append(MapRec(
             self.session, kfs, smap.kf_frame_id[kfs].astype(np.int64),
             smap.kf_pose[kfs].copy(),
             smap.kf_feat_uv[kfs].copy(), smap.kf_feat_right[kfs].copy(),
             smap.kf_feat_octave[kfs].copy(), pts, smap.pt_pos[pts].copy(),
             smap.pt_obs_kf[pts].copy(), smap.pt_obs_feat[pts].copy(),
-            int(system.loop_closing.n_loops_closed),
+            int(system.loop_closing.n_loops_closed), rpc,
             {n: f(system) for n, f in self._keep_map.items()}))
 
 
@@ -492,11 +547,15 @@ class Runner:
         self.device = torch.device(device)
         self.workdir = workdir
         self.entry = cell.config["entry"]
+        if self.entry not in ENTRIES:
+            raise ValueError(f"entry {self.entry!r} is none of {ENTRIES}")
         self.numbers = list(cell.traffic.get("limits", {})
                             if numbers is None else numbers)
         self.number_modules = file_numbers(self.numbers)
         self.seqs, self.warm = make_sequences(cell, seed, workdir)
         self.orb_frames = self._orb_sample()
+        self.in_flight = None     # the system of the per-frame session
+                                  #   running
 
     @property
     def truth(self) -> list | None:
@@ -519,8 +578,25 @@ class Runner:
                              str(seq.root) if seq.root else "")
 
     def _system(self, seq: Sequence):
+        """The session's system on ``seq``, built as the CLI builds it, and
+        the per-frame entry's ``Input`` (None on feature-level frames),
+        built first: a dataset's own calibration reaches the settings
+        before the tracker, the BA and the IMU solver take their copies."""
         from snakeslam_tpu_torch.system.slam import SlamSystem
-        return SlamSystem(self.settings(seq), self.device)
+        s = self.settings(seq)
+        inp = None
+        if self.entry == "per_frame_input":
+            from snakeslam_tpu_torch.frontend.input import Input
+            inp = Input(s, dataset_root=str(seq.root), device=self.device)
+        return SlamSystem(s, self.device), inp
+
+    def _frames(self, seq: Sequence):
+        from snakeslam_tpu_torch.map.slam_map import FrameData
+        return [frame_data(r, FrameData) for r in seq.raw]
+
+    def _windowed(self, system):
+        from snakeslam_tpu_torch.tracking.windowed import WindowedRunner
+        return WindowedRunner(system, window=self.cell.traffic["window"])
 
     def warm_up(self):
         """A throw-away system over the warm-up frames, then its
@@ -531,43 +607,35 @@ class Runner:
         closing's graphs at the window's map sizes are still met first in
         the window, as a user's process meets them."""
         seq = self.warm
-        system = self._system(seq)
+        system, inp = self._system(seq)
         if self.entry == "windowed":
-            from snakeslam_tpu_torch.map.slam_map import FrameData
-            from snakeslam_tpu_torch.tracking.windowed import WindowedRunner
-            frames = [frame_data(r, FrameData) for r in seq.raw]
-            WindowedRunner(system, window=self.cell.traffic["window"]).run(
-                frames)
+            self._windowed(system).run(self._frames(seq))
         else:
-            inp = self._input(seq, system)
-            for frame in InputFrames(inp, limit=seq.frames):
+            frames = inp if inp is not None else self._frames(seq)
+            for frame in InputFrames(frames, limit=seq.frames):
                 system.process_frame(frame)
         system.finalize()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        del system
+        del system, inp
         gc.collect()
 
-    def _input(self, seq: Sequence, system):
-        from snakeslam_tpu_torch.frontend.input import Input
-        return Input(system.s, dataset_root=str(seq.root), device=self.device)
-
     def session(self, k: int, rec: Recorder):
-        """Session ``k`` on sequence ``k mod n``: build, run, finalize."""
+        """Session ``k`` on sequence ``k mod n``: build, run, finalize.  A
+        per-frame session's system stays in ``in_flight`` until it has
+        finished."""
         seq = self.seqs[k % len(self.seqs)]
-        system = self._system(seq)
+        system, inp = self._system(seq)
         rec.new_session(system)
         if self.entry == "windowed":
-            from snakeslam_tpu_torch.map.slam_map import FrameData
-            from snakeslam_tpu_torch.tracking.windowed import WindowedRunner
-            frames = [frame_data(r, FrameData) for r in seq.raw]
-            WindowedRunner(system, window=self.cell.traffic["window"]).run(
-                frames)
+            self._windowed(system).run(self._frames(seq))
             system.finalize()
         else:
-            inp = self._input(seq, system)
+            self.in_flight = system
             keep = self.orb_frames if k < len(self.seqs) else set()
-            system.run(InputFrames(inp, rec, keep_features=keep))
+            frames = inp if inp is not None else self._frames(seq)
+            system.run(InputFrames(frames, rec, keep_features=keep))
+        self.in_flight = None
         rec.sessions_done += 1
 
 
@@ -598,6 +666,8 @@ def run_window(runner: Runner, seconds: float, probes=(), trace=None,
         rec.remove()
         for p in probes:
             p.remove()
+    if rec.sessions_done:
+        runner.in_flight = None
     if runner.device.type == "cuda":
         torch.cuda.synchronize(runner.device)
     if trace is not None:
@@ -608,6 +678,32 @@ def run_window(runner: Runner, seconds: float, probes=(), trace=None,
         f.resolve()
     rec._snap.clear()
     return rec
+
+
+def judge_in_flight(runner: Runner, rec: Recorder) -> bool:
+    """Where the window finished no session: the per-frame session in
+    flight at its close finalized now, after the window and its readings,
+    and its map recorded as a finished session's, so that the judge has a
+    map to read.  Its frames stay as the window recorded them; it closed
+    between two frames, where ``SlamSystem.run`` finalizes too.  (The
+    windowed entry's session closes inside a window of frames, at no such
+    boundary, and is not judged.)  Returns whether it did so."""
+    system, runner.in_flight = runner.in_flight, None
+    if rec.sessions_done:
+        return False
+    if system is None:
+        print("judge: the window finished no session, and no per-frame "
+              "session is in flight to finalize: no map judged",
+              file=sys.stderr)
+        return False
+    t0 = time.perf_counter()
+    system.finalize()
+    rec.keep_map(system)
+    print(f"judge: the window finished no session; the map judged is that "
+          f"of session {rec.session}, in flight at the close, finalized "
+          f"after the window in {time.perf_counter() - t0!r} s",
+          file=sys.stderr)
+    return True
 
 
 def workdir_for(cell: str) -> Path:

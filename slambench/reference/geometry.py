@@ -11,6 +11,16 @@ Huber kernel of width 2.1 (two rows) or 2.3 (three rows) on the weighted
 error.  The solvers iterate Gauss-Newton with Huber reweighting to a fixed
 point: at it the program's own iterates, if they converged, sit too.
 
+A pose problem may also hold rotation terms, the IMU's terms in the
+problems the program solves with an IMU on (the tracker's gyro rotation
+prior, the global BA's relative-rotation constraints between keyframes):
+each the residual ``log(A R B)`` of the judged pose's rotation ``R`` in
+SO(3)'s tangent, with weight ``w``, costing ``w |r|^2`` with no robust
+kernel, as the program's pose solve and BA weigh them (the rotation rows
+of their SE(3) residuals; the program sets those terms no translation
+weight).  The reference linearizes them exactly: ``d r / d w =
+Jl(r)^-1 A`` under ``R <- exp(w) R``.
+
 Every function takes the float dtype it computes in, so the same code is
 the float64 reference and its lower-precision control (``bfloat16``; the
 6x6 and 3x3 solves go through float32, which torch offers for them).
@@ -142,12 +152,73 @@ def _converged(d, x) -> bool:
     return bool((d.abs().amax(-1) <= 1e-13 * (1.0 + x.abs().amax(-1))).all())
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation vectors (..., 3) of rotations R (..., 3, 3), through the
+    unit quaternion built from its largest component (Shepperd 1978)."""
+    m = R
+    tr = m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2]
+    d0, d1, d2 = m[..., 0, 0], m[..., 1, 1], m[..., 2, 2]
+    a21, a02, a10 = (m[..., 2, 1] - m[..., 1, 2], m[..., 0, 2] - m[..., 2, 0],
+                     m[..., 1, 0] - m[..., 0, 1])
+    s01, s02, s12 = (m[..., 0, 1] + m[..., 1, 0], m[..., 0, 2] + m[..., 2, 0],
+                     m[..., 1, 2] + m[..., 2, 1])
+    big = torch.stack([1.0 + tr, 1.0 + 2.0 * d0 - tr, 1.0 + 2.0 * d1 - tr,
+                       1.0 + 2.0 * d2 - tr], -1)
+    k = big.argmax(-1, keepdim=True)
+    s = 2.0 * torch.sqrt(torch.clamp(big.gather(-1, k)[..., 0], min=1e-30))
+    q = torch.stack([
+        torch.stack([s / 4, a21 / s, a02 / s, a10 / s], -1),
+        torch.stack([a21 / s, s / 4, s01 / s, s02 / s], -1),
+        torch.stack([a02 / s, s01 / s, s / 4, s12 / s], -1),
+        torch.stack([a10 / s, s02 / s, s12 / s, s / 4], -1)], -2)
+    q = q.gather(-2, k[..., None].expand(*k.shape[:-1], 1, 4))[..., 0, :]
+    q = torch.where(q[..., :1] < 0, -q, q)
+    w, v = q[..., 0], q[..., 1:]
+    n = torch.linalg.norm(v, dim=-1)
+    f = torch.where(n > 0, 2.0 * torch.atan2(n, w)
+                    / torch.where(n > 0, n, torch.ones_like(n)), 2.0 / w)
+    return f[..., None] * v
+
+
+def _jl_inv(r: torch.Tensor) -> torch.Tensor:
+    """SO(3)'s inverse left Jacobian (..., 3, 3) at rotation vectors r:
+    I - [r]x / 2 + c [r]x^2, c = 1 / th^2 - cot(th / 2) / (2 th), by its
+    series under 0.1 rad (where the closed form cancels)."""
+    th2 = (r * r).sum(-1)
+    th = torch.sqrt(th2)
+    small = th < 0.1
+    ths = torch.where(small, torch.ones_like(th), th)
+    c = torch.where(small, 1.0 / 12.0 + th2 / 720.0 + th2 * th2 / 30240.0,
+                    1.0 / ths**2 - 1.0 / (2.0 * ths * torch.tan(ths / 2.0)))
+    W = _hat(r)
+    eye = torch.eye(3, dtype=r.dtype, device=r.device).expand_as(W)
+    return eye - 0.5 * W + c[..., None, None] * (W @ W)
+
+
+def rotation_terms(R, A, B):
+    """Residuals r = log(A R B) (n, K, 3) of K rotation terms of each of
+    the rotations R (n, 3, 3), with A and B (n, K, 3, 3), and their
+    Jacobians (n, K, 3, 3) under R <- exp(w) R: log(exp(A w) A R B) =
+    r + Jl(r)^-1 A w to first order."""
+    r = so3_log(A @ R[:, None] @ B)
+    return r, _jl_inv(r) @ A
+
+
+def rotation_cost(R, A, B, w) -> torch.Tensor:
+    """Per rotation: sum(w |r|^2) over its rotation terms (``w`` (n,
+    K))."""
+    r = so3_log(A @ R[:, None] @ B)
+    return (w * (r * r).sum(-1)).sum(-1)
+
+
 def solve_poses(T0, points, uv, right, w2, valid, cam, bf, dtype,
-                iterations: int = 50):
+                iterations: int = 50, rotation=None):
     """Pose-only optima of B problems: T0 (B, 4, 4) starting poses
     (world -> camera), points (B, N, 3) world points, uv (B, N, 2),
     right (B, N) (<= 0: no right coordinate), w2 (B, N) octave weights,
-    valid (B, N).  Returns (B, 4, 4) in ``dtype``."""
+    valid (B, N); ``rotation``, where given, (A, B, w) of K rotation
+    terms a problem, A and B (B, K, 3, 3), w (B, K) (0: no term).
+    Returns (B, 4, 4) in ``dtype``."""
     dev = T0.device
     cast = [t.to(dev, dtype) for t in (T0, points, uv, right, w2)]
     T0, points, uv, right, w2 = cast
@@ -159,11 +230,19 @@ def solve_poses(T0, points, uv, right, w2, valid, cam, bf, dtype,
                         stereo], -1).to(dtype)
     obs = torch.cat([uv, right[..., None]], -1)
     R, t = T0[:, :3, :3], T0[:, :3, 3]
+    if rotation is not None:
+        rotation = tuple(x.to(dev, dtype) for x in rotation)
 
     def residuals(R, t):
         Xc = (R[:, None] @ points[..., None])[..., 0] + t[:, None]
         pred, dP = _project(Xc, cam, bf)
         return (pred - obs) * rows, dP, Xc
+
+    def cost(r, R):
+        c = _huber_cost(r, stereo, w2, valid)
+        if rotation is not None:
+            c = c + rotation_cost(R, *rotation)
+        return c
 
     for _ in range(iterations):
         r, dP, Xc = residuals(R, t)
@@ -174,15 +253,24 @@ def solve_poses(T0, points, uv, right, w2, valid, cam, bf, dtype,
         J = (dP * rows[..., None]) @ dX                      # (B, N, 3, 6)
         H = torch.einsum("bnki,bn,bnkj->bij", J, wt, J)
         g = torch.einsum("bnki,bn,bnk->bi", J, wt, r)
+        if rotation is not None:
+            # the rotation rows of the twist (translation, rotation)
+            rp, Jp = rotation_terms(R, *rotation[:2])
+            wp = rotation[2]
+            H[:, 3:, 3:] += torch.einsum("bkci,bk,bkcj->bij", Jp, wp, Jp)
+            g[:, 3:] += torch.einsum("bkci,bk,bkc->bi", Jp, wp, rp)
         d = -_solve(H, g)
-        cost = _huber_cost(r, stereo, w2, valid)
+        cost0 = cost(r, R)
 
         def moved(step):
             Rd, td = se3_exp(d * step[:, None])
             return Rd @ R, (Rd @ t[..., None])[..., 0] + td
 
-        step = _line_search(cost, lambda st: _huber_cost(
-            residuals(*moved(st))[0], stereo, w2, valid), d)
+        def cost_at(step):
+            Rm, tm = moved(step)
+            return cost(residuals(Rm, tm)[0], Rm)
+
+        step = _line_search(cost0, cost_at, d)
         R, t = moved(step)
         if _converged(d * step[:, None], t):
             break
@@ -251,9 +339,11 @@ def gap_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 
-def pose_costs(T, points, uv, right, w2, valid, cam, bf) -> torch.Tensor:
+def pose_costs(T, points, uv, right, w2, valid, cam, bf,
+               rotation=None) -> torch.Tensor:
     """The robust cost (sum of Huber-robustified weighted chi2) of B pose
-    problems at poses ``T`` (B, 4, 4), in float64."""
+    problems at poses ``T`` (B, 4, 4), with their rotation terms' where
+    given (as ``solve_poses``), in float64."""
     dt = torch.float64
     dev = T.device
     T, points, uv, right, w2 = (t.to(dev, dt) for t in
@@ -267,7 +357,11 @@ def pose_costs(T, points, uv, right, w2, valid, cam, bf) -> torch.Tensor:
     obs = torch.cat([uv, right[..., None]], -1)
     Xc = (T[:, None, :3, :3] @ points[..., None])[..., 0] + T[:, None, :3, 3]
     pred, _ = _project(Xc, cam, bf)
-    return _huber_cost((pred - obs) * rows, stereo, w2, valid)
+    cost = _huber_cost((pred - obs) * rows, stereo, w2, valid)
+    if rotation is not None:
+        cost = cost + rotation_cost(T[:, :3, :3],
+                                    *(x.to(dev, dt) for x in rotation))
+    return cost
 
 
 def point_costs(X, poses, uv, right, w2, valid, cam, bf) -> torch.Tensor:

@@ -8,14 +8,18 @@ decided"):
 
 * ``frame_excess_chi2``: each tracked frame's pose against the robust
   pose optimum of that frame's observations of the map points it was
-  matched to, at the positions the tracker read: the robust cost of the
-  frame's pose above the optimum's (a distance in mm would be ruled by
-  the frames held by a few dozen matches, whose optimum is mm wide);
+  matched to, at the positions the tracker read, and of the motion prior
+  it was refined with where that has a weight (the gyro rotation prior
+  with an IMU on): the cost of the frame's pose above the optimum's (a
+  distance in mm would be ruled by the frames held by a few dozen
+  matches, whose optimum is mm wide);
 * ``init_gap_mm``: the points a session's first frame creates against
   the unprojection of its features at their depths (the map's origin);
 * ``kf_gap_mm``: after ``finalize``, each keyframe the global BA moves
   against the pose optimum of its observations of the final points (the
-  observations that BA holds: a point's first 16 live ones);
+  observations that BA holds: a point's first 16 live ones) and, with an
+  IMU solver, of its relative-rotation constraints to the keyframes next
+  to it, held at their final poses (the constraints that BA holds);
 * ``point_excess_chi2``: after ``finalize``, each point against the
   optimum of its position under the final keyframe poses, over the same
   observations, by the robust cost of the point above the optimum's;
@@ -40,7 +44,15 @@ only those are computed, with what they derive from: the frames' excess
 costs for their mean, and one pass over the maps for ``kf_gap_mm``,
 ``point_excess_chi2`` and ``kf_ate_mm``.  A listed number that is not
 built in is a module of its own, ``reference/numbers/<name>.py`` (see
-``load_number``).
+``load_number``).  Every number reads tracked frames, finished sessions'
+maps, or other things (``FRAME_NUMBERS``, ``MAP_NUMBERS``, a module's
+``READS``), and a cell's limits list at least one of each of the first
+two (``limits_faults``).
+
+The camera of a session's frames and map is the one its system was built
+with (``Recorder.cameras``): a dataset's own calibration, where it has
+one, else the configuration's.  ``imu=False`` reads the problems without
+their IMU terms, the visual problems alone.
 
 ``measure`` gives each number's per-item readings (a frame, a keyframe, a
 point, a session's map); ``readings`` reduces them to what a run is
@@ -65,7 +77,9 @@ from reference import geometry as G
 BUILT_IN = ("frame_excess_chi2", "init_gap_mm", "kf_gap_mm",
             "point_excess_chi2", "kf_ate_mm", "orb_mismatch_pct",
             "frame_excess_chi2_mean", "loops_missed")
+FRAME_NUMBERS = ("frame_excess_chi2", "frame_excess_chi2_mean")
 MAP_NUMBERS = ("kf_gap_mm", "point_excess_chi2", "kf_ate_mm")
+READS = ("frames", "maps", "other")   # what a number reads
 NUMBERS = Path(__file__).resolve().parent / "numbers"
 GBA_OBS = 16          # observations of a point the global BA packs
 BLOCK = 256           # frames per solve
@@ -95,16 +109,35 @@ def _pad(rows, n, fill):
     return out
 
 
+def _rotation_block(terms):
+    """(A, B, w) tensors of a block of pose problems' rotation terms, each
+    problem's a list of (A (3, 3), B (3, 3), w), padded with weightless
+    ones; None where no problem has one."""
+    k = max(len(t) for t in terms)
+    if not k:
+        return None
+    A = np.tile(np.eye(3), (len(terms), k, 1, 1))
+    B = A.copy()
+    w = np.zeros((len(terms), k))
+    for i, ts in enumerate(terms):
+        for j, (a, b, wt) in enumerate(ts):
+            A[i, j], B[i, j], w[i, j] = a, b, wt
+    return tuple(torch.from_numpy(x) for x in (A, B, w))
+
+
 def _pose_gaps(T_prog, pts, uv, right, octv, cam, bf, sf, dtype,
-               device="cpu", excess: bool = False):
+               device="cpu", excess: bool = False, rotation=None):
     """Camera-centre gaps (mm) of B pose problems against their optima or,
-    with ``excess``, the robust cost of the judged pose above the
-    optimum's (chi2 units: squared pixels over the octave's scale); with a
-    lower ``dtype`` the answer judged is the reference's own in that
-    precision, started where the program started it."""
+    with ``excess``, the cost of the judged pose above the optimum's
+    (chi2 units: squared pixels over the octave's scale); with a lower
+    ``dtype`` the answer judged is the reference's own in that precision,
+    started where the program started it.  ``rotation`` holds per problem
+    its rotation terms, a list of (A, B, w): residual log(A R B) of the
+    pose's rotation R, with weight w."""
     out, judged_c = [], []
     for s in range(0, len(T_prog), BLOCK):
         sl = slice(s, s + BLOCK)
+        rel = None if rotation is None else _rotation_block(rotation[sl])
         n = max(len(p) for p in pts[sl])
         P = torch.from_numpy(_pad(pts[sl], n, np.nan))
         valid = ~torch.isnan(P[..., 0])
@@ -116,14 +149,16 @@ def _pose_gaps(T_prog, pts, uv, right, octv, cam, bf, sf, dtype,
         W2 = _weights(_pad([o.astype(np.int64) for o in octv[sl]], n, 0), sf)
         T0 = torch.from_numpy(np.stack(T_prog[sl]).astype(np.float64)).to(
             device)
-        ref = G.solve_poses(T0, P, U, Rr, W2, valid, cam, bf, torch.float64)
+        ref = G.solve_poses(T0, P, U, Rr, W2, valid, cam, bf, torch.float64,
+                            rotation=rel)
         judged = T0
         if dtype != torch.float64:
-            judged = G.solve_poses(T0, P, U, Rr, W2, valid, cam, bf, dtype)
+            judged = G.solve_poses(T0, P, U, Rr, W2, valid, cam, bf, dtype,
+                                   rotation=rel)
         judged = judged.double()
         if excess:
-            d = (G.pose_costs(judged, P, U, Rr, W2, valid, cam, bf)
-                 - G.pose_costs(ref, P, U, Rr, W2, valid, cam, bf))
+            d = (G.pose_costs(judged, P, U, Rr, W2, valid, cam, bf, rel)
+                 - G.pose_costs(ref, P, U, Rr, W2, valid, cam, bf, rel))
         else:
             d = G.gap_mm(G.centres(judged), G.centres(ref))
         out.append(d.cpu().numpy())
@@ -133,26 +168,49 @@ def _pose_gaps(T_prog, pts, uv, right, octv, cam, bf, sf, dtype,
     return np.concatenate(out), torch.cat(judged_c)
 
 
-def frame_excess(frames, cam, bf, sf, dtype=torch.float64, device="cpu",
-                 seed: int = 0) -> np.ndarray:
-    """Per tracked frame, the robust cost of its pose above the optimum of
-    its own matches: a weakly held pose (a few dozen matches) may lie mm
-    from that optimum at no cost, a well held one may not."""
+def _by_camera(items, cameras) -> dict:
+    """{camera: indices of ``items``} by the camera of each one's
+    session."""
+    groups: dict = {}
+    for i, x in enumerate(items):
+        groups.setdefault(cameras[x.session], []).append(i)
+    return groups
+
+
+def frame_excess(frames, cameras, sf, dtype=torch.float64, device="cpu",
+                 seed: int = 0, imu: bool = True) -> np.ndarray:
+    """Per tracked frame, the cost of its pose above the optimum of its own
+    matches and of its motion prior, where it has one (with ``imu``): a
+    weakly held pose (a few dozen matches) may lie mm from that optimum at
+    no cost, a well held one may not.  ``cameras`` maps a session to its
+    (fx, fy, cx, cy, bf)."""
     fr = sample([f for f in frames if f.kind in ("track", "window")],
                 MAX_FRAMES, seed)
-    if not fr:
-        return np.zeros(0)
-    return _pose_gaps([f.pose for f in fr], [f.points for f in fr],
-                      [f.uv for f in fr], [f.right for f in fr],
-                      [f.octave for f in fr], cam, bf, sf, dtype, device,
-                      excess=True)[0]
+    out = np.zeros(len(fr))
+    for camera, idx in _by_camera(fr, cameras).items():
+        sel = [fr[i] for i in idx]
+        rotation = None
+        if imu and any(f.prior is not None for f in sel):
+            # the rotation of the prior's residual log(T P^-1)
+            # (tracking/tracker.py's fine step, ops/pose_solver.py's
+            # robust_pose_refine)
+            rotation = [[] if f.prior is None else
+                        [(np.eye(3), f.prior[0][:3, :3].T, f.prior[1])]
+                        for f in sel]
+        out[idx] = _pose_gaps(
+            [f.pose for f in sel], [f.points for f in sel],
+            [f.uv for f in sel], [f.right for f in sel],
+            [f.octave for f in sel], camera[:4], camera[4], sf, dtype,
+            device, excess=True, rotation=rotation)[0]
+    return out
 
 
-def init_gaps(frames, cam, dtype=torch.float64) -> np.ndarray:
+def init_gaps(frames, cameras, dtype=torch.float64) -> np.ndarray:
     out = []
     for f in frames:
         if f.kind != "init":
             continue
+        cam = cameras[f.session][:4]
         m = ~np.isnan(f.points[:, 0])
         uv = torch.from_numpy(f.uv[m].astype(np.float64)).to(dtype)
         z = torch.from_numpy(f.depth[m].astype(np.float64)).to(dtype)
@@ -184,17 +242,36 @@ def _packed_obs(m):
     return sel_row, sel_feat
 
 
-def map_gaps(maps, cam, bf, sf, dtype=torch.float64, device="cpu",
-             seed: int = 0, truth=None):
+def _kf_terms(m, j: int) -> list:
+    """Keyframe row ``j``'s relative-rotation constraints in map ``m``,
+    each (A, B, w) with the other keyframe at its final pose: the rotation
+    of the BA's residual log(T_j T_i^-1 M^-1) (ops/ba.py) as keyframe j's,
+    or, as keyframe i's, the same norm's log(M T_i T_j^-1)."""
+    out = []
+    R = m.kf_pose[:, :3, :3]
+    for i_row, j_row, M, w in m.rpc:
+        if j_row == j:
+            out.append((np.eye(3), R[i_row].T @ M[:3, :3].T, w))
+        elif i_row == j:
+            out.append((M[:3, :3], R[j_row].T, w))
+    return out
+
+
+def map_gaps(maps, cameras, sf, dtype=torch.float64, device="cpu",
+             seed: int = 0, truth=None, imu: bool = True):
     """(keyframe gaps in mm, the points' excess robust costs, each map's
     keyframe ATE in mm) over the finished sessions' maps: a point seen
     over a short baseline is mm wide along its depth at no cost, so a
-    point is judged by cost.  ``truth`` holds per sequence the true camera
-    centres by frame id (session ``k`` ran sequence ``k mod len``); with
-    none there is no ATE.  The control's ATE is that of its own keyframe
-    solves (the gauge keyframes and the weakly seen keep the program's)."""
+    point is judged by cost.  A keyframe's problem holds its
+    relative-rotation constraints where the map has them (with ``imu``).
+    ``truth`` holds per sequence the true camera centres by frame id
+    (session ``k`` ran sequence ``k mod len``); with none there is no ATE.
+    The control's ATE is that of its own keyframe solves (the gauge
+    keyframes and the weakly seen keep the program's)."""
     kf_out, pt_out, ate_out = [], [], []
     for m in sample(maps, MAX_MAPS, seed + 1):
+        camera = cameras[m.session]
+        cam, bf = camera[:4], camera[4]
         K = len(m.kf_ids)
         if K < 3 or len(m.pt_ids) == 0:
             continue
@@ -218,12 +295,13 @@ def map_gaps(maps, cam, bf, sf, dtype=torch.float64, device="cpu",
             pt_out.append((G.point_costs(judged, *args)
                            - G.point_costs(ref, *args)).cpu().numpy())
         # keyframes: the first and the last are the BA's gauge, held fixed
-        T_prog, pts, uvs, rights, octs, js = [], [], [], [], [], []
+        T_prog, pts, uvs, rights, octs, js, rel = [], [], [], [], [], [], []
         for j in range(1, K - 1):
             p, f = np.nonzero(ok & (rows == j))
             if len(p) < 10:
                 continue
             js.append(j)
+            rel.append(_kf_terms(m, j) if imu else [])
             T_prog.append(m.kf_pose[j])
             pts.append(m.pt_pos[p])
             uvs.append(m.kf_uv[j, feats[p, f]])
@@ -232,7 +310,8 @@ def map_gaps(maps, cam, bf, sf, dtype=torch.float64, device="cpu",
         est = G.centres(torch.from_numpy(m.kf_pose.astype(np.float64)))
         if T_prog:
             gaps, judged = _pose_gaps(T_prog, pts, uvs, rights, octs, cam,
-                                      bf, sf, dtype, device)
+                                      bf, sf, dtype, device,
+                                      rotation=rel if any(rel) else None)
             kf_out.append(gaps)
             if dtype != torch.float64:
                 est[js] = judged
@@ -269,7 +348,9 @@ def load_number(name: str):
     ``reference/numbers/<name>.py``.  It defines ``measure(rec, cell,
     runner, dtype, device, seed)``, the per-item readings (an array) of
     the recorded run, which the run is judged by the maximum of unless it
-    also defines ``reduce(values)``.  It may define ``keep_frame(frame)``
+    also defines ``reduce(values)``, and ``READS``: what it reads, one of
+    ``READS`` ("frames": tracked frames; "maps": finished sessions' maps
+    after ``finalize``; "other").  It may define ``keep_frame(frame)``
     and ``keep_map(system)``: the recorder keeps what they return from
     each recorded frame in ``FrameRec.extra[name]`` and from each session's
     system after ``finalize`` in ``MapRec.extra[name]``.  Like the rest of
@@ -284,7 +365,40 @@ def load_number(name: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[key] = mod      # where a dataclass in it looks it up
     spec.loader.exec_module(mod)
+    if getattr(mod, "READS", None) not in READS:
+        raise ValueError(f"judge number {name!r} states no READS of {READS}")
     return mod
+
+
+def reads(name: str) -> str:
+    """What number ``name`` reads: "frames", "maps" or "other"."""
+    if name in FRAME_NUMBERS:
+        return "frames"
+    if name in MAP_NUMBERS:
+        return "maps"
+    if name in BUILT_IN:
+        return "other"
+    return load_number(name).READS
+
+
+def limits_faults(limits: dict) -> list[str]:
+    """What keeps a cell's ``limits`` from the rule every cell keeps
+    (empty: none): it lists a number, each number listed is built in or
+    has its file, and at least one reads tracked frames and one finished
+    sessions' maps."""
+    if not limits:
+        return ["the cell lists no limits"]
+    faults, read = [], set()
+    for name in limits:
+        try:
+            read.add(reads(name))
+        except (FileNotFoundError, ValueError) as e:
+            faults.append(str(e))
+    for what, words in (("frames", "tracked frames"),
+                        ("maps", "finished sessions' maps")):
+        if what not in read:
+            faults.append(f"no number listed reads {words}")
+    return faults
 
 
 def file_numbers(numbers) -> dict:
@@ -304,32 +418,31 @@ def default_numbers(images=None, truth=None,
 
 def measure(rec, config: dict, images=None, dtype=torch.float64,
             device="cpu", seed: int = 0, truth=None, numbers=None,
-            cell=None, runner=None) -> dict:
+            cell=None, runner=None, imu: bool = True) -> dict:
     """Per-item readings (arrays) of ``numbers`` (default: every built-in
     one with something to read) over a run, and of what they derive from;
     ``dtype`` below float64 gives the control's.  The pose and point
     solves run on ``device``; frames and maps beyond ``MAX_FRAMES`` and
-    ``MAX_MAPS`` are sampled from ``seed``.  A number of a module of its
-    own reads ``cell`` and ``runner``."""
+    ``MAX_MAPS`` are sampled from ``seed``.  ``imu=False`` leaves the
+    IMU's terms out of the frames' and keyframes' problems.  A number of a
+    module of its own reads ``cell`` and ``runner``."""
     if numbers is None:
         numbers = default_numbers(images, truth)
     want = set(numbers)
     if "frame_excess_chi2_mean" in want:
         want.add("frame_excess_chi2")
-    ini = config["ini"]
-    camc = ini["Camera"]
-    cam = (camc["fx"], camc["fy"], camc["cx"], camc["cy"])
-    bf = float(camc["bf"])
-    fd = ini["FeatureDetector"]
+    cameras = rec.cameras
+    fd = config["ini"]["FeatureDetector"]
     sf = float(fd["fd_scale_factor"])
     out = {}
     if "frame_excess_chi2" in want:
-        out["frame_excess_chi2"] = frame_excess(rec.frames, cam, bf, sf,
-                                                dtype, device, seed)
+        out["frame_excess_chi2"] = frame_excess(rec.frames, cameras, sf,
+                                                dtype, device, seed, imu)
     if "init_gap_mm" in want:
-        out["init_gap_mm"] = init_gaps(rec.frames, cam, dtype)
+        out["init_gap_mm"] = init_gaps(rec.frames, cameras, dtype)
     if want & set(MAP_NUMBERS):
-        got = map_gaps(rec.maps, cam, bf, sf, dtype, device, seed, truth)
+        got = map_gaps(rec.maps, cameras, sf, dtype, device, seed, truth,
+                       imu)
         out.update((n, v) for n, v in zip(MAP_NUMBERS, got) if n in want)
     if "orb_mismatch_pct" in want:
         orb = dict(n=int(fd["fd_features"]), levels=int(fd["fd_levels"]),
@@ -345,7 +458,8 @@ def measure(rec, config: dict, images=None, dtype=torch.float64,
 
 def readings(rec, config: dict, images=None, dtype=torch.float64,
              device="cpu", seed: int = 0, loops_per_session: int = 0,
-             truth=None, numbers=None, cell=None, runner=None) -> dict:
+             truth=None, numbers=None, cell=None, runner=None,
+             imu: bool = True) -> dict:
     """The numbers a run is judged by, each of ``numbers`` (default: every
     built-in one with something to read) and no other: a worst case of
     ``measure``'s readings, the frames' mean excess, or the sessions that
@@ -354,7 +468,7 @@ def readings(rec, config: dict, images=None, dtype=torch.float64,
     if numbers is None:
         numbers = default_numbers(images, truth, loops_per_session)
     got = measure(rec, config, images, dtype, device, seed, truth, numbers,
-                  cell, runner)
+                  cell, runner, imu)
     out = {}
     for name in BUILT_IN:
         if name not in numbers:

@@ -117,7 +117,7 @@ def graph_captures() -> int:
 def judge(cell, rec, runner, seed: int, device: str = "cuda"):
     """(correct, the compared numbers with their limits); the reference's
     solves run on ``device``."""
-    from reference.judge import readings
+    from reference.judge import limits_faults, readings
 
     # the numbers the cell's limits list, and no other
     got = readings(rec, cell.config, runner.seqs[0].images or None,
@@ -128,9 +128,12 @@ def judge(cell, rec, runner, seed: int, device: str = "cuda"):
     limits = cell.traffic.get("limits", {})
     checks = {name: {"value": v, "limit": limits[name]}
               for name, v in got.items()}
-    # a number with nothing to read (no finished session) fails, and so
-    # does a cell that states no limits
-    ok = bool(limits) and all(
+    # a number with nothing to read fails, and so does a cell whose limits
+    # break the rule every cell keeps (none, or none over frames or maps)
+    faults = limits_faults(limits)
+    for fault in faults:
+        print(f"judge: {fault}", file=sys.stderr)
+    ok = not faults and all(
         c["value"] is not None and c["value"] <= c["limit"]
         for c in checks.values())
     return ok, checks
@@ -139,7 +142,8 @@ def judge(cell, rec, runner, seed: int, device: str = "cuda"):
 def main(argv=None) -> int:
     args = parse(argv)
     from harness import (LaunchTally, Probe, Runner, SpanLog, cleanup,
-                         load_cell, load_reader, run_window, workdir_for)
+                         judge_in_flight, load_cell, load_reader, run_window,
+                         workdir_for)
 
     cell = load_cell(args.workload)
     chips = int(cell.entry["chips"])
@@ -200,6 +204,9 @@ def main(argv=None) -> int:
                     metrics[m["name"]] = {"value": v, "unit": m["unit"]}
         else:
             metrics = end_to_end(cell, rec, args.seconds, setup_s)
+        # every figure is read: a window that finished no session has its
+        # session in flight finalized for the judge now
+        judge_in_flight(runner, rec)
         gc.collect()
         torch.cuda.empty_cache()
         t_judge = time.perf_counter()

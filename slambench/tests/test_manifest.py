@@ -9,6 +9,7 @@ import pytest
 
 from harness import HERE, REPO, load_cell, load_manifest, load_reader
 from probes import resolve
+from reference.judge import NUMBERS, limits_faults
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -74,10 +75,58 @@ def test_cell_found_by_name(cell):
     assert c.per_layer
     for m in c.per_layer:
         assert m["moves"] in e2e
-    # every number of the judge has its limit
-    assert set(c.traffic["limits"]) >= {
-        "frame_excess_chi2", "frame_excess_chi2_mean", "init_gap_mm",
-        "kf_gap_mm", "point_excess_chi2"}
+    # the cell is judged on its tracked frames and on its maps, by numbers
+    # the judge has
+    assert not limits_faults(c.traffic["limits"])
+
+
+# (a cell's limits, what keeps them from the rule: None where nothing)
+TUM_LIMITS = json.loads((HERE / "workloads" / "tum_rgbd_fr1.orbit300.json")
+                        .read_text())["limits"]
+MONO_IMU = {"frame_excess_chi2": 50.0, "frame_excess_chi2_mean": 1.0,
+            "kf_gap_mm": 0.05, "point_excess_chi2": 0.05}
+LIMIT_CASES = {
+    "tum_cell": (TUM_LIMITS, None),
+    "mono_imu_without_init_gap": (MONO_IMU, None),
+    "mono_imu_with_a_map_number_file": (
+        {"frame_excess_chi2": 50.0, "_scratch_reads_maps": 1.0}, None),
+    "no_map_number": ({"frame_excess_chi2": 50.0, "init_gap_mm": 0.0,
+                       "orb_mismatch_pct": 0.0}, "finished sessions' maps"),
+    "no_frame_number": ({"kf_gap_mm": 0.05, "loops_missed": 0},
+                        "tracked frames"),
+    "a_number_with_no_file": (dict(MONO_IMU, imu_state_gap=1.0),
+                              "imu_state_gap"),
+    "a_number_file_that_reads_nothing_named": (
+        dict(MONO_IMU, _scratch_reads_unsaid=1.0), "READS"),
+    "no_limits": ({}, "no limits"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIMIT_CASES))
+def test_limits_rule(case):
+    """Every cell lists at least one number over tracked frames and one
+    over finished sessions' maps, each built in or a file of its own that
+    says which it reads; a monocular cell keeps the rule without
+    ``init_gap_mm``."""
+    limits, fault = LIMIT_CASES[case]
+    made_numbers = not NUMBERS.exists()
+    files = {NUMBERS / "_scratch_reads_maps.py": 'READS = "maps"\n',
+             NUMBERS / "_scratch_reads_unsaid.py": "def measure(*a):\n"
+                                                    "    return []\n"}
+    try:
+        NUMBERS.mkdir(exist_ok=True)
+        for path, text in files.items():
+            path.write_text(text)
+        faults = limits_faults(limits)
+    finally:
+        for path in files:
+            path.unlink(missing_ok=True)
+        if made_numbers:
+            NUMBERS.rmdir()
+    if fault is None:
+        assert faults == []
+    else:
+        assert len(faults) == 1 and fault in faults[0], faults
 
 
 @pytest.mark.parametrize("metric", sorted(
@@ -184,6 +233,7 @@ against the map the recorder kept: 0 where the hook ran on that map."""
 import numpy as np
 
 NAME = "{NUM}"
+READS = "maps"
 calls = {{"map": 0, "frame": 0}}
 
 
